@@ -43,8 +43,8 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {what} is not ported yet (ROADMAP A10)")
 
 
-def effective_window(cfg: ModelConfig, window_override: int = 0) -> int:
-    return cfg.sliding_window if cfg.sliding_window else window_override
+def effective_window(cfg: ModelConfig) -> int:
+    return cfg.sliding_window
 
 
 def period_segments(cfg: ModelConfig) -> Tuple[int, List[Tuple[str, int]]]:

@@ -25,6 +25,9 @@ from repro_torch.kernels.ragged_lora import ragged_grouped_lora_ref
 from repro_torch.models.convert import adapters_from_jax
 from repro_torch.models.layers import lora_delta
 
+# one intra-op thread: this file shares the CPU with the rest of the suite
+torch.set_num_threads(1)
+
 # float32 tolerance for products that sum in another order or over
 # another contraction length (d = 256, r <= 32 here)
 RTOL, ATOL = 1e-5, 1e-6

@@ -8,6 +8,7 @@ drain."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_reduced as jax_reduced
 from repro.core.alora import AdapterSpec as JSpec
@@ -21,6 +22,9 @@ from repro_torch.core.alora import AdapterSpec
 from repro_torch.models.convert import adapters_from_jax, params_from_jax
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.serving import pipelines as P
+
+# one intra-op thread: this file shares the CPU with the rest of the suite
+torch.set_num_threads(1)
 
 INV = (7, 8, 9)
 # name -> (engine config, adapters as (name, rank, invocation), pipeline)

@@ -17,6 +17,9 @@ from repro.kernels.ref import ragged_paged_attention_ref as jax_attn_ref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ragged_lora as rl
 
+# one intra-op thread: this file shares the CPU with the rest of the suite
+torch.set_num_threads(1)
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 

@@ -19,6 +19,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.convert import adapters_from_jax, params_from_jax
 
+# one intra-op thread: this file shares the CPU with the rest of the suite
+torch.set_num_threads(1)
+
 RTOL = ATOL = 1e-5
 
 

@@ -9,6 +9,7 @@ indices, is excluded."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_reduced as jax_reduced
 from repro.core.alora import init_adapter_weights as jax_adapter
@@ -20,6 +21,9 @@ from repro_torch.configs import get_reduced
 from repro_torch.core.alora import per_layer_adapters, stack_adapters
 from repro_torch.models.convert import adapters_from_jax, params_from_jax
 from repro_torch.serving import runner as R
+
+# one intra-op thread: this file shares the CPU with the rest of the suite
+torch.set_num_threads(1)
 
 NB, BS, MR = 32, 16, 5
 # request A: base model, prefill 0..19 in blocks [3, 7]; request B: an
