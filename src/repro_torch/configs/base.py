@@ -89,16 +89,30 @@ class ModelConfig:
         return tuple([ATTN] * self.num_layers)
 
     def param_count(self) -> int:
-        """Total parameters of an attention-only stack (tied -> once)."""
+        """Total parameters of a dense, SSM or hybrid stack (embeddings
+        once, tied -> once; the reference's count without MoE and
+        encoder-decoder terms)."""
         d, hd = self.d_model, self.head_dim
         emb = self.vocab_size * d
         n = emb if self.tie_embeddings else 2 * emb
         attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
             + self.num_heads * hd * d
         mlp = (3 if self.activation == "swiglu" else 2) * d * self.d_ff
-        n += self.num_layers * (attn + mlp)
+        for kind in self.pattern():
+            n += attn + mlp if kind == ATTN else self._ssm_params()
         n += (self.num_layers * 2 + 1) * d
         return n
+
+    def _ssm_params(self) -> int:
+        s = self.ssm
+        d = self.d_model
+        d_inner = s.expand * d
+        nheads = d_inner // s.head_dim
+        # in_z / in_xbc / in_dt, the depthwise conv, out_proj, then
+        # A_log, dt_bias, D and the gated norm
+        in_proj = d * (2 * d_inner + 2 * s.ngroups * s.state_dim + nheads)
+        conv = s.conv_width * (d_inner + 2 * s.ngroups * s.state_dim)
+        return in_proj + conv + d_inner * d + nheads * 2 + d_inner
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,11 +1,14 @@
 """Activated-LoRA adapter weights (and the vanilla-LoRA baseline), the
-attention-segment counterpart of the reference's ``repro/core/alora.py``.
+counterpart of the reference's ``repro/core/alora.py``.
 
 Adapter weights mirror the reference's segment stacking: for each
 attention segment a dict {"aq","bq","ak","bk","av","bv"} with leading
-(repeats, count) layer dims.  ``stack_adapters`` inserts the zero
-adapter at index 0 and stacks along a new slot axis; ``per_layer_adapters``
-slices a stacked tree into the per-layer list the runner consumes.
+(repeats, count) layer dims; for each SSM segment {"a","b"} on the fused
+[z | xBC | dt] input projection (B spans its full width; the delta is
+sliced onto the split ``in_z``/``in_xbc``/``in_dt`` products).
+``stack_adapters`` inserts the zero adapter at index 0 and stacks along
+a new slot axis; ``per_layer_adapters`` slices a stacked tree into the
+per-layer list the runner consumes.
 
 aLoRA and vanilla LoRA weights are the same objects; they differ in
 where they apply (``activation_mask``) and how their blocks hash
@@ -21,9 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import resolve_device, tree_leaves, tree_map
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import check_supported, period_segments
+from repro_torch.models.ssm import in_proj_dim
 
 Params = Dict[str, Any]
 
@@ -44,9 +48,13 @@ class AdapterSpec:
         return "alora" if self.invocation_tokens is not None else "lora"
 
 
-def leaf_shapes(cfg: ModelConfig, rank: int) -> Dict[str, Tuple[int, ...]]:
-    """Per-layer shapes of one adapter's A/B leaves (no slot axis)."""
+def leaf_shapes(cfg: ModelConfig, rank: int, kind: str = ATTN
+                ) -> Dict[str, Tuple[int, ...]]:
+    """Per-layer shapes of one adapter's A/B leaves (no slot axis) for a
+    layer of ``kind``."""
     H, KV, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    if kind != ATTN:
+        return {"a": (d, rank), "b": (rank, in_proj_dim(cfg))}
     return {"aq": (d, rank), "bq": (rank, H * hd),
             "ak": (d, rank), "bk": (rank, KV * hd),
             "av": (d, rank), "bv": (rank, KV * hd)}
@@ -65,9 +73,9 @@ def init_adapter_weights(generator: torch.Generator, cfg: ModelConfig,
     a_std = 1.0 / math.sqrt(cfg.d_model)
     b_std = 0.0 if zero_b else 0.02 / math.sqrt(rank)
     out: Params = {}
-    for si, (_, count) in enumerate(segs):
+    for si, (kind, count) in enumerate(segs):
         seg = {}
-        for name, shape in leaf_shapes(cfg, rank).items():
+        for name, shape in leaf_shapes(cfg, rank, kind).items():
             std = a_std if name.startswith("a") else b_std
             full = (repeats, count) + shape
             if std == 0.0:
@@ -88,13 +96,15 @@ def zero_adapter_weights(cfg: ModelConfig, rank: int, *, device="cuda"
     repeats, segs = period_segments(cfg)
     return {f"seg{si}": {name: torch.zeros((repeats, count) + shape,
                                            dtype=dtype_of(cfg), device=dev)
-                         for name, shape in leaf_shapes(cfg, rank).items()}
-            for si, (_, count) in enumerate(segs)}
+                         for name, shape in leaf_shapes(cfg, rank,
+                                                        kind).items()}
+            for si, (kind, count) in enumerate(segs)}
 
 
 def adapter_rank_of(weights: Params) -> int:
     """Read an adapter's rank off its first segment's A matrix."""
-    return weights[sorted(weights)[0]]["aq"].shape[-1]
+    seg = weights[sorted(weights)[0]]
+    return (seg["aq"] if "aq" in seg else seg["a"]).shape[-1]
 
 
 def pad_adapter_rank(weights: Params, target_rank: int) -> Params:

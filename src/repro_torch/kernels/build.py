@@ -38,6 +38,10 @@ SIGNATURES = {
     # T, d, r, out_dim, n_slots, K, is_bf16, stream
     "ragged_grouped_lora": (P, P, P, P, P, P, P,
                             I, I, I, I, I, I, I, P),
+    # x, B, C, dA, dt, seg_starts, slot_rows, init_states, y, states,
+    # T, H, N, P, stream
+    "ragged_ssd_chunk_scan": (P, P, P, P, P, P, P, P, P, P,
+                              I, I, I, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None     # the process's loaded library

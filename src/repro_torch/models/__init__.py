@@ -1,1 +1,1 @@
-"""Model building blocks and the attention-only transformer assembly."""
+"""Model building blocks and the dense, SSM and hybrid stack assembly."""

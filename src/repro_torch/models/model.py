@@ -1,12 +1,16 @@
-"""Transformer assembly for the attention-only slice — the counterpart of
-the reference's ``repro/models/model.py`` for dense decoder stacks.
+"""Model assembly — the counterpart of the reference's
+``repro/models/model.py`` for dense decoder stacks, pure SSM stacks
+(mamba2) and periodic hybrids (zamba2: 5 SSM + 1 attention layer per
+period).
 
 Parameters are a plain dictionary::
 
     {"embed": {"tok": (Vpad, d)[, "unembed": (d, Vpad)]},
      "final_norm": (d,),
      "layers": [{"ln1", "attn": {"wq","wk","wv","wo"}, "ln2",
-                 "mlp": {"w_gate","w_up","w_down"}}, ...]}
+                 "mlp": {"w_gate","w_up","w_down"}}      # attention
+                | {"ln", "ssm": {"in_z", "in_xbc", ...}},  # SSM
+                ...]}
 
 with one entry per layer in network order — the reference's
 ``blocks/seg{i}`` stacks unrolled the way its ``iter_layers`` walks them
@@ -21,18 +25,22 @@ from typing import Any, Dict, Iterator, List, Tuple
 import torch
 
 from repro_torch.common import resolve_device
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, SSM, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.ssm import init_ssm
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the architecture families this slice does not port,
+    """Raise for the architecture families the port does not run yet,
     naming the ROADMAP item that ports them."""
-    if cfg.ssm is not None or any(k != ATTN for k in cfg.pattern()):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM/hybrid stacks are not ported yet (ROADMAP A9)")
+    kinds = set(cfg.pattern())
+    if not kinds <= {ATTN, SSM}:
+        raise ValueError(f"{cfg.name}: unknown layer kinds "
+                         f"{sorted(kinds - {ATTN, SSM})}")
+    if SSM in kinds and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: SSM layers need an SSMConfig")
     for what, present in (("mixture-of-experts", cfg.moe is not None),
                           ("encoder-decoder", cfg.is_encoder_decoder),
                           ("vision/audio frontends", cfg.frontend != "none"),
@@ -76,7 +84,8 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                 device="cuda") -> Params:
     """Random weights with the reference's shapes and standard deviations
-    (``init_params``/``init_attn``/``init_mlp``/``init_embeddings``), drawn
+    (``init_params``/``init_attn``/``init_mlp``/``init_ssm``/
+    ``init_embeddings``), drawn
     from ``generator``, which must live on ``device``.  The values differ
     from the reference's ``jax.random`` streams; tests that compare the
     two packages convert the reference's weights instead."""
@@ -97,7 +106,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         embed["unembed"] = normal((d, v), 0.02)
     layers = []
-    for _ in range(cfg.num_layers):
+    for kind in cfg.pattern():
+        if kind == SSM:
+            layers.append({"ln": ones(),
+                           "ssm": init_ssm(generator, cfg, dtype, dev)})
+            continue
         layers.append({
             "ln1": ones(),
             "attn": {"wq": normal((d, H * hd), std),

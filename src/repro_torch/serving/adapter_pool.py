@@ -5,8 +5,10 @@ A host registry of arbitrarily many adapters backs a small fixed pool of
 device-resident slots (S-LoRA's unified paging).  ``layers`` holds, per
 model layer, one preallocated device tensor per leaf: ``(S+1, d, R)``
 for A and ``(S+1, R, out)`` for B, slot 0 permanently zero, R the
-bucketed slot rank.  The list and its tensors are shared with the model
-runner and written in place, so an install is visible to the next step.
+bucketed slot rank; an attention layer has Q/K/V pairs, an SSM layer
+one pair on its fused input projection.  The list and its tensors are
+shared with the model runner and written in place, so an install is
+visible to the next step.
 
 Per registration: HOST-ONLY → (prefetch) PREFETCHED → (install)
 RESIDENT(slot s) → (LRU eviction once unpinned) HOST-ONLY.
@@ -89,11 +91,12 @@ class AdapterPool:
         self.num_slots = num_slots
         self.slot_rank = slot_rank
         dtype = dtype_of(cfg)
+        # one slot stack per leaf of each layer, shaped by its kind
         self.layers: List[Params] = [
             {name: torch.zeros((num_slots + 1,) + shape, dtype=dtype,
                                device=self.device)
-             for name, shape in leaf_shapes(cfg, slot_rank).items()}
-            for _ in range(cfg.num_layers)]
+             for name, shape in leaf_shapes(cfg, slot_rank, kind).items()}
+            for kind in cfg.pattern()]
         # staging copies run here, off the compute stream (card only)
         self._side = torch.cuda.Stream(device=self.device) \
             if self.device.type == "cuda" else None

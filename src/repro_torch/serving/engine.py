@@ -1,17 +1,21 @@
 """The serving engine: scheduler + continuous batching + chunked prefill +
 cross-model prefix caching (the paper's system, §3), ported from the
-reference's ``repro/serving/engine.py`` for attention-only models.
+reference's ``repro/serving/engine.py`` for attention, SSM and hybrid
+stacks.
 
 Request flow (paper Fig. 5): submit → [queue] → admission (prefix-cache
-match on base-aligned block hashes) → chunked prefill (budgeted per
-step, interleaved with decodes) → decode → done.  The engine runs a
-discrete-event loop with a virtual clock that advances by the measured
-wall time of each step.
+match on base-aligned block hashes and SSM state snapshots) → chunked
+prefill (budgeted per step, interleaved with decodes) → decode → done.
+The engine runs a discrete-event loop with a virtual clock that advances
+by the measured wall time of each step.
 
 Cross-model reuse appears in two places: admission matches the
 request's ``AdapterKey``, so aLoRA requests hit blocks the base model or
 sibling adapters prefilled (and vice versa); and every block filled,
 during prefill or decode, is registered under its base-aligned hash.
+On SSM and hybrid stacks the recurrent state at each such block boundary
+is snapshotted too (``st_mgr``), so an aLoRA request restores the state
+the base request left at the same boundary as its KV blocks.
 
 Each iteration is a **schedule → submit → retire** pipeline
 (``Engine.step``): sampling runs on the device inside the mixed step,
@@ -61,9 +65,10 @@ class _InflightStep:
     """A submitted mixed step awaiting retirement: the device handle plus,
     per request row, ``(request, epoch-at-submit, sampled-row index,
     output_tokens patch index | None, decode block-boundary position |
-    None)``."""
+    None, state-snapshot slot claimed for that boundary | None)``."""
     handle: StepHandle
-    retires: List[Tuple[Request, int, int, Optional[int], Optional[int]]]
+    retires: List[Tuple[Request, int, int, Optional[int], Optional[int],
+                        Optional[int]]]
 
 
 @dataclass(frozen=True)
@@ -71,6 +76,8 @@ class EngineConfig:
     block_size: int = 16
     num_blocks: int = 512
     max_running: int = 8
+    # SSM state-snapshot slots (SSM and hybrid stacks)
+    num_state_slots: int = 64
     max_batched_tokens: int = 128     # chunked-prefill budget per step
     enable_prefix_cache: bool = True
     # "mixed" only; the reference's "sequential" oracle is ROADMAP A11
@@ -142,15 +149,22 @@ class Engine:
                 self.adapter_pool.register(spec, w)
         rcfg = RunnerConfig(block_size=engine_cfg.block_size,
                             num_blocks=engine_cfg.num_blocks + 1,
-                            max_running=engine_cfg.max_running + 1)
+                            max_running=engine_cfg.max_running + 1,
+                            num_state_slots=engine_cfg.num_state_slots + 1)
         self.runner = ModelRunner(
             cfg, params, rcfg,
             self.adapter_pool.layers if self.adapter_pool else None,
             device=device, tracer=self.tracer)
+        # each manager exists only when its kind of layer does
         self.kv_mgr = BlockManager(engine_cfg.num_blocks,
-                                   engine_cfg.block_size)
+                                   engine_cfg.block_size) \
+            if self.runner.La else None
+        self.st_mgr = BlockManager(engine_cfg.num_state_slots,
+                                   engine_cfg.block_size) \
+            if self.runner.Ls else None
         self.cache = PrefixCache(block_size=engine_cfg.block_size,
-                                 kv_manager=self.kv_mgr) \
+                                 kv_manager=self.kv_mgr,
+                                 state_manager=self.st_mgr) \
             if engine_cfg.enable_prefix_cache else None
 
         self.clock = 0.0
@@ -260,34 +274,42 @@ class Engine:
             return False
         adapter_pinned = False
         # match against prompt[:-1]: the last prompt token is always
-        # recomputed to produce the first token's logits
-        n_reuse, kv_blocks = 0, []
+        # recomputed to produce the first token's logits, so the reuse
+        # boundary (KV blocks and the state snapshot, which sit at the
+        # same boundary) never covers it
+        n_reuse, kv_blocks, state_slot = 0, [], None
         req.hashes = request_block_hashes(req.prompt, bs,
                                           req.adapter_key(), req.salt)
         if self.cache is not None:
             m = self.cache.match_and_acquire(req.prompt[:-1],
                                              req.adapter_key(), req.salt)
-            n_reuse, kv_blocks = m.n_tokens, m.kv_blocks
+            n_reuse, kv_blocks, state_slot = (m.n_tokens, m.kv_blocks,
+                                              m.state_slot)
         n_new = (n_prompt + bs - 1) // bs - len(kv_blocks)
         new_blocks: List[int] = []
 
         def bail() -> bool:
             # one cleanup for every failure path: return the matched and
-            # freshly allocated blocks and the adapter-slot pin
-            self.kv_mgr.release_all(kv_blocks + new_blocks)
+            # freshly allocated blocks, the state-snapshot reference and
+            # the adapter-slot pin
+            if self.kv_mgr is not None:
+                self.kv_mgr.release_all(kv_blocks + new_blocks)
+            if state_slot is not None:
+                self.st_mgr.release(state_slot)
             if adapter_pinned:
                 self.adapter_pool.release(req.adapter_uid)
                 req.adapter_slot = 0
             return False
 
-        if self.kv_mgr.num_free() < n_new:
-            return bail()
-        try:
-            for _ in range(n_new):
-                new_blocks.append(self.kv_mgr.allocate())
-        except OutOfBlocks:
-            return bail()
-        req.block_ids = kv_blocks + new_blocks
+        if self.kv_mgr is not None:
+            if self.kv_mgr.num_free() < n_new:
+                return bail()
+            try:
+                for _ in range(n_new):
+                    new_blocks.append(self.kv_mgr.allocate())
+            except OutOfBlocks:
+                return bail()
+            req.block_ids = kv_blocks + new_blocks
         # adapter admission charge, after blocks so a block-side failure
         # never pays an eviction+install for nothing
         if req.adapter_uid is not None:
@@ -301,9 +323,17 @@ class Engine:
         req.n_computed = n_reuse
         req.n_cache_hit_tokens = n_reuse
         req.run_slot = self._free_slots.pop()
+        if self.runner.Ls:
+            if state_slot is not None:
+                self.runner.restore_state(state_slot, req.run_slot)
+                req.state_reused = True
+                self.st_mgr.release(state_slot)   # copied into live state
+            else:
+                self.runner.reset_live(req.run_slot)
         if self.tracer.enabled:
             self.tracer.ledger_entry(req.req_id, req.adapter_uid, n_reuse,
-                                     n_prompt - n_reuse, False, self.clock)
+                                     n_prompt - n_reuse, req.state_reused,
+                                     self.clock)
         # prompt embeddings kept on the host, so each step's assembly
         # packs rows with slice copies (one device→host copy, logged)
         req.input_embeds = self.runner.build_input_embeds(req.prompt)
@@ -464,7 +494,7 @@ class Engine:
         r.epoch += 1
         while r.output_tokens and r.output_tokens[-1] == PENDING:
             r.output_tokens.pop()
-        if r.block_ids:
+        if self.kv_mgr is not None and r.block_ids:
             self.kv_mgr.release_all(r.block_ids)
         r.block_ids = []
         if r.run_slot >= 0:
@@ -474,6 +504,7 @@ class Engine:
             self.adapter_pool.release(r.adapter_uid)
             r.adapter_slot = 0
         r.n_computed = 0
+        r.state_reused = False
         r.state = State.QUEUED
         self.running.remove(r)
         self.waiting.appendleft(r)
@@ -498,17 +529,18 @@ class Engine:
         ok: List[Request] = []
         for r in decodes:
             pos = r.n_computed
-            n_before = len(r.block_ids)
-            while len(r.block_ids) <= pos // bs:
-                try:
-                    r.block_ids.append(self.kv_mgr.allocate())
-                except OutOfBlocks:
-                    break
-            if len(r.block_ids) <= pos // bs:
-                # starved: return the partial claim; retry next step
-                while len(r.block_ids) > n_before:
-                    self.kv_mgr.release(r.block_ids.pop())
-                continue
+            if self.kv_mgr is not None:
+                n_before = len(r.block_ids)
+                while len(r.block_ids) <= pos // bs:
+                    try:
+                        r.block_ids.append(self.kv_mgr.allocate())
+                    except OutOfBlocks:
+                        break
+                if len(r.block_ids) <= pos // bs:
+                    # starved: return the partial claim; retry next step
+                    while len(r.block_ids) > n_before:
+                        self.kv_mgr.release(r.block_ids.pop())
+                    continue
             ok.append(r)
         return ok
 
@@ -539,31 +571,60 @@ class Engine:
     # ------------------------------------------------------------------
     # token-value-free bookkeeping (submit time) and its deferred half
     # ------------------------------------------------------------------
-    def _advance_decode(self, r: Request) -> Tuple[Optional[int],
-                                                   Optional[int]]:
+    def _advance_decode(self, r: Request
+                        ) -> Tuple[Optional[int], Optional[int],
+                                   Optional[int]]:
         """Advance ``r`` past one decode token whose value may still be on
-        the device.  Returns ``(patch_idx, boundary_pos)`` for retire:
-        the output_tokens index holding a PENDING placeholder (frontier
-        rows only) and the position that completed a block."""
+        the device.  Returns ``(patch_idx, boundary_pos, snap_slot)`` for
+        retire: the output_tokens index holding a PENDING placeholder
+        (frontier rows only), the position that completed a block, and
+        the state-snapshot slot claimed for it.  The live state is
+        snapshotted NOW, while the pools hold this step's output: the
+        copy is enqueued after the step and before the next one."""
         r.n_computed += 1
+        bs = self.ecfg.block_size
         pos = r.n_computed
-        boundary_pos = pos if self.cache is not None \
-            and pos % self.ecfg.block_size == 0 else None
+        boundary_pos = snap_slot = None
+        if self.cache is not None and pos % bs == 0:
+            boundary_pos = pos
+            if self.st_mgr is not None:
+                b = pos // bs - 1
+                # with every token of block b host-known (the sync path),
+                # the hash is computable now: skip the claim and the
+                # copies for a state the cache already holds.  Async must
+                # not: the entry could be evicted before this step
+                # retires, and by then the live pool has moved on.
+                known = all(t != PENDING
+                            for t in r.all_tokens[len(r.hashes) * bs:pos])
+                cached = False
+                if known and not self.use_async:
+                    self._extend_hash_chain(r, b)
+                    cached = self.st_mgr.lookup(r.hashes[b]) is not None
+                if not cached:
+                    try:
+                        snap_slot = self.st_mgr.allocate()
+                    except OutOfBlocks:
+                        snap_slot = None      # pool pressure: skip it
+                    else:
+                        self.runner.snapshot_live(max(r.run_slot, 0),
+                                                  snap_slot)
         patch_idx = None
         # extend only at the sampling frontier (after a preemption the
         # decode path recomputes known tokens first)
         if pos == len(r.all_tokens) and not r.is_finished():
             patch_idx = len(r.output_tokens)
             r.output_tokens.append(PENDING)
-        return patch_idx, boundary_pos
+        return patch_idx, boundary_pos, snap_slot
 
-    def _advance_prefill(self, r: Request, lo: int, hi: int
-                         ) -> Optional[int]:
+    def _advance_prefill(self, r: Request, lo: int, hi: int,
+                         boundary) -> Optional[int]:
         """Register the blocks this chunk completed (prompt hashes are
-        known since admission) and, when the prompt is done, leave the
-        first token's PENDING placeholder; returns its index or None."""
+        known since admission) with their state snapshots from
+        ``boundary`` (this chunk's slice of the step's boundary states)
+        and, when the prompt is done, leave the first token's PENDING
+        placeholder; returns its index or None."""
         r.n_computed = hi
-        self._register_prefill_blocks(r, lo, hi)
+        self._register_prefill_blocks(r, lo, hi, boundary)
         patch_idx = None
         if hi == len(r.prompt):
             r.state = State.DECODE
@@ -599,11 +660,16 @@ class Engine:
         positions = take("e_pos", T, np.int32)
         adapter_idx = take("e_ad", T, np.int32)
         req_rows = take("e_rows", T, np.int32)
+        row_cols = take("e_cols", T, np.int32)
         write_bids = take("e_wb", T, np.int32)
         write_offs = take("e_wo", T, np.int32)
         out_rows = take("e_out", R, np.int32)
         run_slots = take("e_slots", R, np.int32)
         block_tables = [list(r.block_ids) for r in reqs]
+        # packed indices of prefill block-boundary tokens (SSM snapshot
+        # emission points) and each span's (offset, count) into them
+        snap_rows: List[int] = []
+        span_snaps: List[Tuple[int, int]] = []
 
         t = 0
         for i, r in enumerate(decodes):
@@ -616,8 +682,9 @@ class Engine:
             positions[t] = pos
             adapter_idx[t] = self._adapter_idx(r, np.array([pos]))[0]
             req_rows[t] = i
-            write_bids[t] = r.block_ids[pos // bs]
-            write_offs[t] = pos % bs
+            if self.kv_mgr is not None:
+                write_bids[t] = r.block_ids[pos // bs]
+                write_offs[t] = pos % bs
             out_rows[i] = t
             run_slots[i] = max(r.run_slot, 0)
             t += 1
@@ -631,11 +698,19 @@ class Engine:
             positions[sl] = pr
             adapter_idx[sl] = self._adapter_idx(r, pr)
             req_rows[sl] = row
-            bids = np.array(r.block_ids, np.int32)
-            write_bids[sl] = bids[pr // bs]
-            write_offs[sl] = pr % bs
+            row_cols[sl] = pr - lo
+            if self.kv_mgr is not None:
+                bids = np.array(r.block_ids, np.int32)
+                write_bids[sl] = bids[pr // bs]
+                write_offs[sl] = pr % bs
             out_rows[row] = t + n - 1
             run_slots[row] = max(r.run_slot, 0)
+            off = len(snap_rows)
+            if self.st_mgr is not None:
+                # every b in [lo // bs, hi // bs) is a full block
+                for b in range(lo // bs, hi // bs):
+                    snap_rows.append(t + (b + 1) * bs - 1 - lo)
+            span_snaps.append((off, len(snap_rows) - off))
             t += n
 
         # the step's active adapter slots, ascending: every token's
@@ -645,9 +720,11 @@ class Engine:
         mb = MixedBatch(tok_ids=tok_ids, embeds=embeds,
                         use_embeds=use_embeds, from_buf=from_buf,
                         positions=positions, adapter_idx=adapter_idx,
-                        req_rows=req_rows, write_bids=write_bids,
-                        write_offs=write_offs, block_tables=block_tables,
-                        out_rows=out_rows, run_slots=run_slots,
+                        req_rows=req_rows, row_cols=row_cols,
+                        write_bids=write_bids, write_offs=write_offs,
+                        block_tables=block_tables, out_rows=out_rows,
+                        run_slots=run_slots,
+                        snap_rows=np.array(snap_rows, np.int32),
                         active_slots=np.array(active, np.int32))
         self.t_assembly += time.perf_counter() - t_host
         t0 = time.perf_counter()
@@ -656,11 +733,17 @@ class Engine:
         # decode rows first, then prefill — the reference's order
         retires: List[Tuple] = []
         for i, r in enumerate(decodes):
-            patch_idx, bpos = self._advance_decode(r)
-            retires.append((r, r.epoch, i, patch_idx, bpos))
+            patch_idx, bpos, slot = self._advance_decode(r)
+            retires.append((r, r.epoch, i, patch_idx, bpos, slot))
         for j, (r, lo, hi) in enumerate(prefills):
-            patch_idx = self._advance_prefill(r, lo, hi)
-            retires.append((r, r.epoch, len(decodes) + j, patch_idx, None))
+            bnd = None
+            if handle.boundary is not None:
+                off, cnt = span_snaps[j]
+                bnd = (handle.boundary[0][:, off:off + cnt],
+                       handle.boundary[1][:, off:off + cnt])
+            patch_idx = self._advance_prefill(r, lo, hi, bnd)
+            retires.append((r, r.epoch, len(decodes) + j, patch_idx, None,
+                            None))
         return _InflightStep(handle=handle, retires=retires)
 
     # ------------------------------------------------------------------
@@ -676,12 +759,15 @@ class Engine:
     def _retire(self, inf: _InflightStep) -> None:
         """The one blocking device→host sync per iteration (the sampled
         ids), then the deferred bookkeeping.  Rows whose request was
-        preempted after submit (epoch mismatch) are dropped."""
+        preempted after submit (epoch mismatch) are dropped; only their
+        state-snapshot claim needs returning."""
         t0 = time.perf_counter()
         sampled = self.runner.fetch_sampled(inf.handle)
         self.clock += (time.perf_counter() - t0) * self.ecfg.time_scale
-        for r, epoch, row, patch_idx, bpos in inf.retires:
+        for r, epoch, row, patch_idx, bpos, slot in inf.retires:
             if r.epoch != epoch:
+                if slot is not None:
+                    self.st_mgr.release(slot)
                 continue
             # first-token arrival defines decode start (TTFT includes the
             # prefill step's device time)
@@ -690,7 +776,7 @@ class Engine:
             if patch_idx is not None:
                 r.output_tokens[patch_idx] = int(sampled[row])
             if bpos is not None:
-                self._register_decode_block(r, bpos)
+                self._register_decode_block(r, bpos, slot)
         self._finish_requests()
 
     # ------------------------------------------------------------------
@@ -704,15 +790,26 @@ class Engine:
             self.kv_mgr.release(bid)
             r.block_ids[b] = canon
 
-    def _register_prefill_blocks(self, r: Request, lo: int, hi: int) -> None:
+    def _register_prefill_blocks(self, r: Request, lo: int, hi: int,
+                                 boundary) -> None:
         if self.cache is None:
             return
         bs = self.ecfg.block_size
         for b in range(lo // bs, hi // bs):
             if (b + 1) * bs > hi:
                 break
-            if b < len(r.block_ids):
-                self._adopt_canonical(r, b, r.hashes[b])
+            h = r.hashes[b]
+            if self.kv_mgr is not None and b < len(r.block_ids):
+                self._adopt_canonical(r, b, h)
+            if self.st_mgr is not None and self.st_mgr.lookup(h) is None:
+                try:
+                    slot = self.st_mgr.allocate()
+                except OutOfBlocks:
+                    continue
+                # boundary row c of this chunk is block lo // bs + c
+                self.runner.snapshot_boundary(boundary, b - lo // bs, slot)
+                self.cache.register_state(h, slot)
+                self.st_mgr.release(slot)       # cached, not owned
 
     def _extend_hash_chain(self, r: Request, b: int) -> None:
         """Extend the block-hash chain incrementally through block ``b``;
@@ -726,14 +823,22 @@ class Engine:
             extra = r.salt + block_extra(r.adapter_key(), lo, hi)
             r.hashes.append(hash_block(parent, toks[lo:hi], extra))
 
-    def _register_decode_block(self, r: Request, pos: int) -> None:
+    def _register_decode_block(self, r: Request, pos: int,
+                               snap_slot: Optional[int]) -> None:
         """A decode step that reached ``pos`` completed a block: hash and
-        register it (generated tokens are cached too, paper §4.4).  Runs
-        at retire, when the block's token values are host-known."""
+        register it (generated tokens are cached too, paper §4.4), with
+        the live-state snapshot ``_advance_decode`` took into
+        ``snap_slot``.  Runs at retire, when the block's token values are
+        host-known."""
         b = pos // self.ecfg.block_size - 1
         self._extend_hash_chain(r, b)
-        if b < len(r.block_ids):
-            self._adopt_canonical(r, b, r.hashes[b])
+        h = r.hashes[b]
+        if self.kv_mgr is not None and b < len(r.block_ids):
+            self._adopt_canonical(r, b, h)
+        if snap_slot is not None:
+            if self.st_mgr.lookup(h) is None:
+                self.cache.register_state(h, snap_slot)
+            self.st_mgr.release(snap_slot)
 
     def _finish_requests(self) -> None:
         still = []
@@ -750,7 +855,8 @@ class Engine:
                         r.t_prefill_start, r.t_decode_start, r.t_done,
                         len(r.prompt), len(r.output_tokens),
                         r.n_cache_hit_tokens)
-                self.kv_mgr.release_all(r.block_ids)
+                if self.kv_mgr is not None:
+                    self.kv_mgr.release_all(r.block_ids)
                 if r.run_slot >= 0:
                     self._free_slots.append(r.run_slot)
                 if r.adapter_uid is not None and r.adapter_slot > 0:

@@ -56,7 +56,8 @@ class Request:
     hashes: List[BlockHash] = field(default_factory=list)  # full-block chain
     n_computed: int = 0                     # tokens with K/V in the cache
     n_cache_hit_tokens: int = 0             # reused via the prefix cache
-    run_slot: int = -1                      # tok_buf slot while admitted
+    run_slot: int = -1                      # tok_buf/live-state slot
+    state_reused: bool = False              # SSM snapshot restored
     input_embeds: Any = None                # (S, d) float32 numpy, host
 
     @property

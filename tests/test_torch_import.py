@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs.base import MoEConfig
 from repro_torch.core.alora import init_adapter_weights
 from repro_torch.models.model import check_supported, init_params
 from repro_torch.serving import Engine, EngineConfig
@@ -21,6 +22,10 @@ from repro_torch.serving.runner import ModelRunner, RunnerConfig
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
+# the SSM slice's modules, which the import guard must load
+NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
+               "repro_torch.configs.zamba2_2_7b",
+               "repro_torch.kernels.ssd_chunk", "repro_torch.models.ssm")
 
 
 def _forbidden(name: str) -> bool:
@@ -41,7 +46,9 @@ def test_import_loads_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n")
+        f"missing = set({NEW_MODULES!r}) - set(names)\n"
+        "assert not missing, missing\n"
+        "assert len(names) >= 24, names\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -97,8 +104,8 @@ def test_sequential_mode_raises_naming_roadmap_item(small):
                engine_cfg=EngineConfig(execution_mode="sequential"))
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-2.7b", "A9"),
-                                       ("zamba2-2.7b", "A9"),
+@pytest.mark.parametrize("arch,item", [("starcoder2-3b", "A10"),
+                                       ("granite-moe-1b-a400m", "A10"),
                                        ("whisper-large-v3", "A10"),
                                        ("phi3.5-moe-42b-a6.6b", "A10")])
 def test_unported_configs_raise_naming_roadmap_item(arch, item):
@@ -107,7 +114,8 @@ def test_unported_configs_raise_naming_roadmap_item(arch, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"arch_type": "ssm", "layer_pattern": None}, "A9"),
+    ({"moe": MoEConfig(num_experts=4, experts_per_token=2, d_ff=64)},
+     "A10"),
     ({"is_encoder_decoder": True}, "A10"),
     ({"frontend": "vision"}, "A10"),
     ({"sliding_window": 64}, "A10")])
@@ -115,3 +123,18 @@ def test_unported_families_raise_at_construction(kw, item):
     cfg = get_reduced("granite-3.2-8b").replace(**kw)
     with pytest.raises(NotImplementedError, match=item):
         check_supported(cfg)
+
+
+def test_ssm_stack_without_ssm_config_raises():
+    cfg = get_reduced("granite-3.2-8b").replace(arch_type="ssm")
+    with pytest.raises(ValueError, match="SSMConfig"):
+        check_supported(cfg)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, arch):
+    cfg = get_reduced(arch)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(torch.Generator().manual_seed(0), cfg)
