@@ -17,7 +17,13 @@ Phases, each of which exits non-zero on failure:
    bfloat16), the grouped LoRA delta (granite's Q and K/V widths in
    float32 and bfloat16; in bfloat16 the fused SSM input projection of
    mamba2 and zamba2 and zamba2's Q/K/V), the ragged SSD scan (float32,
-   mamba2's N = 128 and zamba2's N = 64);
+   mamba2's N = 128 and zamba2's N = 64); and the kernel bench's three
+   kernels at small shapes that reach every masked edge, in each type
+   they take: decode paged attention (lengths ending inside a block,
+   with and without a 7-token window), the fused aLoRA QKV projection
+   (T, d and the output width off its tiles; a nonzero adapter in slot 0
+   and indices -1 and n, all of which must add no delta) and the dense
+   SSD chunk scan (S and P off its chunk and column slice);
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
@@ -28,7 +34,18 @@ Phases, each of which exits non-zero on failure:
    zamba2 with two adapters cycling through one device slot, the same
    weights and the same pipeline on the card and on the CPU — identical
    tokens, prefix-cache hits (KV blocks and state snapshots),
-   ``state_reused`` and adapter evictions.
+   ``state_reused`` and adapter evictions;
+5. the kernel-bench entry point (``repro_torch.kernels.bench``) at full
+   width, with every kernel count set to 0 just before and read just
+   after: decode attention (granite's GQA, contexts 256–4096, bf16, and
+   float32 with a 24-token window), the fused aLoRA QKV projection
+   (granite's d 4096 → 6144, four rank-32 adapters; bf16 at T = 128 and
+   512, float32 at 128) and the dense SSD chunk scan (float32, two rows
+   of 2048 tokens, H 80, P 64, N = 128 and 64) must each launch, and each
+   must stay within tolerance of its plain version; the bench times each
+   against its plain version, its bound and its yardstick.  Then a NaN
+   written into the block past every length must leave decode
+   attention's output unchanged at the bench's full-width cases.
 
 ``PERF.md`` gives its run time on one H100, the kernels' build included.
 
@@ -51,12 +68,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM HBM3
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 # max |err| / max |plain|, taken per output row for attention (whose rows
 # differ in scale by the context length) and over the whole output for
 # the LoRA delta (whose rows share one scale)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TOL_OF = "max |err| / max |plain|, of each row for attention"
 WINDOW = 24                     # sliding-window case of the attention check
 INV = (7, 8, 9)
 
@@ -75,32 +91,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-class Timer:
-    """Median time of one call, by CUDA events, with the 50 MB L2 cache
-    flushed before each launch (the main path's callers find it cold:
-    every layer reads other weights between two calls)."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn, n: int = 25, warmup: int = 3) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(n):
-            self.flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-
 def rel_err(got, want, rows=None):
     """Over ``rows``: (max |got - want|, that over max |want|, the largest
     per-row max |got - want| over that row's max |want|)."""
@@ -116,10 +106,13 @@ def rel_err(got, want, rows=None):
 
 
 def bound(nbytes: float, ops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """The least time the card could take, in ms, and what sets it: the
+    larger of the bytes over the HBM rate and the operations over the
+    type's dense peak (the rates of the port's kernel bench)."""
+    import torch
+
+    from repro_torch.kernels.bench import bound_ms
+    return bound_ms(nbytes, ops, getattr(torch, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -439,22 +432,81 @@ def check_ssd_scan(torch, timer, gen):
     return res
 
 
+def check_bench_edges(torch):
+    """Decode attention, the fused aLoRA QKV projection and the dense SSD
+    scan against their plain versions at small shapes that reach every
+    masked edge, in float32 and bf16 (the scan float32 only): lengths 5,
+    17 and 40 over 16-token blocks, with no window and a 7-token one; T
+    100, d 264 and out 200 against 64 x 128 (bf16) and 64 x 64 (float32)
+    tiles and 32- or 16-wide steps of d, rank 8 padded to 32, a nonzero
+    adapter in slot 0 and indices -1 and n; S 70 and P 40 against 32-token
+    chunks and 32-column slices, N 64 and 128.  Within TOL of max |plain|,
+    of each row for attention.  Returns {case: relative error}."""
+    from repro_torch.kernels import bench
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    builders = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (0, 7):
+            builders.append(lambda dtype=dtype, window=window:
+                            bench.attention_case(
+                                gen, "cuda", dtype, B=3, H=32, KV=8,
+                                hd=128, bs=16, lengths=[5, 17, 40], nb=4,
+                                window=window, name=f"edge_window{window}"))
+        builders.append(lambda dtype=dtype: bench.alora_case(
+            gen, "cuda", dtype, T=100, d=264, out=200, n=4, r=8,
+            name="edge", edge=True))
+    for N in (64, 128):
+        builders.append(lambda N=N: bench.ssd_case(
+            gen, "cuda", Bt=2, S=70, H=3, P=40, N=N, name=f"edge_N{N}",
+            plain_iters=1))
+    res = {}
+    for make in builders:
+        case = make()
+        kernel, plain = bench.WRAPPERS[case.kernel]
+        dtype_name = str(case.dtype).replace("torch.", "")
+        key = f"{case.kernel}/{case.name}_{dtype_name}"
+        got = bench.outputs(kernel(*case.args, **case.kwargs))
+        want = bench.outputs(plain(*case.args, **case.kwargs))
+        torch.cuda.synchronize()
+        tol = TOL[dtype_name]
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        rel = max(e[2] if case.per_row else e[1] for e in errs)
+        if rel > tol:
+            fail(f"{key}: {rel} of max|plain|"
+                 f"{' (per row)' if case.per_row else ''} > {tol}")
+        res[key] = rel
+        print(f"  {key}: {rel:.3e} of max|plain|"
+              f"{' per row' if case.per_row else ''} (tol {tol})",
+              flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the engine
 # ---------------------------------------------------------------------------
+def counted():
+    """Every kernel wrapper of the port, by name."""
+    from repro_torch.kernels import (alora_qkv, paged_attention, ragged_lora,
+                                     ssd_chunk)
+    return {"ragged_paged_attention": paged_attention.ragged_paged_attention,
+            "ragged_grouped_lora": ragged_lora.ragged_grouped_lora,
+            "ragged_ssd_chunk_scan": ssd_chunk.ragged_ssd_chunk_scan,
+            "paged_attention": paged_attention.paged_attention,
+            "ssd_chunk_scan": ssd_chunk.ssd_chunk_scan,
+            "alora_qkv": alora_qkv.alora_qkv}
+
+
 def reset_counts():
-    from repro_torch.kernels import paged_attention, ragged_lora, ssd_chunk
-    paged_attention.ragged_paged_attention.launches = 0
-    ragged_lora.ragged_grouped_lora.launches = 0
-    ssd_chunk.ragged_ssd_chunk_scan.launches = 0
+    for fn in counted().values():
+        fn.launches = 0
 
 
 def read_counts():
     """Launches since ``reset_counts``: attention, LoRA, SSD scan."""
-    from repro_torch.kernels import paged_attention, ragged_lora, ssd_chunk
-    return (paged_attention.ragged_paged_attention.launches,
-            ragged_lora.ragged_grouped_lora.launches,
-            ssd_chunk.ragged_ssd_chunk_scan.launches)
+    c = counted()
+    return tuple(c[k].launches for k in ("ragged_paged_attention",
+                                         "ragged_grouped_lora",
+                                         "ragged_ssd_chunk_scan"))
 
 
 def run_pipeline(torch, eng, adapter_names=("eval",), **kw):
@@ -568,7 +620,8 @@ def main_path(torch, arch: str, profile: bool):
         # the reference: a (128, d) float32 pinned buffer, non_blocking
         host = torch.empty((128, cfg.d_model), dtype=torch.float32,
                            pin_memory=True)
-        up = Timer(torch)(lambda: host.to("cuda", non_blocking=True))
+        from repro_torch.kernels.bench import Timer
+        up = Timer("cuda")(lambda: host.to("cuda", non_blocking=True))
         print(f"  host-embed upload (128 x {cfg.d_model} fp32): {up:.4f} ms",
               flush=True)
         summary["host_embed_upload_ms"] = up
@@ -741,6 +794,51 @@ def parity(torch, arch: str):
     return {k: r[k] for k in ("kv_hits", "state_hits", "evictions")}
 
 
+def bench_path(torch):
+    """Phase 5: the kernel-bench entry point at full width, every kernel
+    count set to 0 just before and read just after.  Each of its three
+    kernels must launch, and each case's kernel output must be finite and
+    within tolerance of its plain version.  Then, at the bench's
+    attention cases made anew from its seed, a NaN in the pool's last
+    block, which every table entry past a length points at, must change
+    no output."""
+    from repro_torch.kernels import bench
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bench.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted().items()}
+    print(f"  bench {seconds:.1f} s; launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()), flush=True)
+    for name in ("paged_attention", "ssd_chunk_scan", "alora_qkv"):
+        if launches[name] == 0:
+            fail(f"the kernel bench never launched {name}")
+    for key, r in res.items():
+        r["tol"] = TOL[r["dtype"]]
+        rel = r["row_rel_err"] if "row_rel_err" in r else r["rel_err"]
+        if not r["finite"] or rel > r["tol"]:
+            fail(f"bench {key}: finite {r['finite']}, {rel} of max|plain| "
+                 f"> {r['tol']}")
+    for case in bench.cases("cuda"):
+        if case.kernel != "paged_attention":
+            break
+        kernel = bench.WRAPPERS[case.kernel][0]
+        clean = kernel(*case.args, **case.kwargs)
+        k, v = case.args[1:3]
+        k[-1] = float("nan")
+        v[-1] = float("nan")
+        again = kernel(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        if not torch.equal(again, clean):
+            fail(f"paged_attention/{case.name}: a NaN in the block past "
+                 "every length reached the output")
+        print(f"  paged_attention/{case.name}: a NaN in the block past "
+              "every length changes no output", flush=True)
+        del case, clean, again
+    return res, launches, seconds
+
+
 def kernel_entry(name, source, replaces, launches, steps, check, **extra):
     """One entry of the ``kernels`` line: the fields every kernel has,
     then what is particular to it."""
@@ -750,8 +848,39 @@ def kernel_entry(name, source, replaces, launches, steps, check, **extra):
     for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms"):
         entry[k] = check[k]
+    entry["tol_of"] = TOL_OF
     entry.update(extra)
     return entry
+
+
+def bench_entry(name, source, replaces, launches, bres, edges, case,
+                others=()):
+    """The ``kernels`` entry of a kernel the bench entry point drives:
+    its launches in that run (one bench call, hence launches_per_step),
+    error and times from that run for ``case``, then the same for its
+    ``others``, and its errors at phase 2's edge shapes."""
+    def fields(c):
+        r = bres[f"{name}/{c}"]
+        out = {"case": c, "shape": r["shape"], "dtype": r["dtype"]}
+        for k in ("max_abs_err", "rel_err", "row_rel_err", "tol", "ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "base_gemm_ms", "device_split_ms"):
+            if k in r:
+                out[k] = r[k]
+        out.setdefault("library_ms", None)
+        return out
+
+    first = fields(case)
+    return kernel_entry(name, source, replaces, launches[name], 1, first,
+                        per="bench call",
+                        **{k: v for k, v in first.items()
+                           if k not in ("max_abs_err", "tol", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                        others=[fields(c) for c in others],
+                        edge_rel_err={k.split("/", 1)[1]: v
+                                      for k, v in edges.items()
+                                      if k.startswith(name + "/")})
 
 
 def main() -> None:
@@ -760,6 +889,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.bench import Timer
 
     t_start = time.perf_counter()
     card = card_line()
@@ -788,10 +918,11 @@ def main() -> None:
             "zamba2": get_config("zamba2-2.7b")}
     cfg = cfgs["granite"]
     gen = torch.Generator().manual_seed(0)
-    timer = Timer(torch)
+    timer = Timer("cuda")
     attn = check_attention(torch, cfgs, timer, gen)
     lora = check_lora(torch, cfgs, timer, gen)
     scan = check_ssd_scan(torch, timer, gen)
+    edges = check_bench_edges(torch)
     del timer
     torch.cuda.empty_cache()
 
@@ -805,6 +936,9 @@ def main() -> None:
     print("[4] parity, reduced fp32, card vs CPU", flush=True)
     par = {arch: parity(torch, arch)
            for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b")}
+
+    print("[5] kernel bench entry point, full width", flush=True)
+    bres, blaunch, bsec = bench_path(torch)
 
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
@@ -838,8 +972,10 @@ def main() -> None:
             launches_zamba2=z["launches"]["ragged_grouped_lora"],
             ms_out1024=lora["bfloat16_out1024"]["ms"],
             bound_ms_out1024=lora["bfloat16_out1024"]["bound_ms"],
+            plain_ms_out1024=lora["bfloat16_out1024"]["plain_ms"],
             cases={k: {f: v[f] for f in ("d", "out", "max_abs_err",
-                                         "rel_err", "tol", "ms", "bound_ms")
+                                         "rel_err", "tol", "ms", "plain_ms",
+                                         "bound_ms")
                        if f in v} for k, v in lora.items()}),
         kernel_entry(
             "ragged_ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk.cu",
@@ -853,8 +989,20 @@ def main() -> None:
             / z["steps"],
             n64={k: scan["zamba2"][k] for k in
                  ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}),
+        bench_entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
+                    "src/repro/kernels/paged_attention.py:141", blaunch,
+                    bres, edges, "granite_bf16",
+                    others=("granite_f32_window24",)),
+        bench_entry("ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk_dense.cu",
+                    "src/repro/kernels/ssd_chunk.py:73", blaunch, bres, edges,
+                    "mamba2_N128", others=("zamba2_N64",)),
+        bench_entry("alora_qkv", "src/repro_torch/csrc/alora_qkv.cu",
+                    "src/repro/kernels/alora_qkv.py:45", blaunch, bres, edges,
+                    "granite_bf16_T512",
+                    others=("granite_bf16_T128", "granite_f32_T128")),
     ]
-    print(json.dumps({"main_path": mp, "parity": par, "card": card,
+    print(json.dumps({"main_path": mp, "parity": par, "bench": bres,
+                      "bench_seconds": bsec, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
-// Ragged paged attention for Hopper (sm_90a).
+// Ragged and decode paged attention for Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/paged_attention.py::
-// ragged_paged_attention (body _ragged_paged_attn_kernel ->
-// _paged_attn_kernel).  Every packed token t (a decode singleton or a
-// prefill-chunk row) attends over its own request's paged K/V through
-// block_tables[req_rows[t]], causal to q_lens[t], with an optional window.
+// Replaces two TPU kernels of repro/kernels/paged_attention.py, which
+// share one body (_paged_attn_kernel):
+//   ragged_paged_attention (body _ragged_paged_attn_kernel): every packed
+//     token t (a decode singleton or a prefill-chunk row) attends over
+//     its own request's paged K/V through block_tables[req_rows[t]],
+//     causal to q_lens[t], with an optional window;
+//   paged_attention: one query per sequence b over block_tables[b], up
+//     to lengths[b] -- the same kernel with req_rows == nullptr (row b
+//     of the table is the block's own) and q_lens = lengths.
 //
 // Layout.  One thread block per (token, KV head).  The block reads
 // req_rows[t], q_lens[t] and its row of block_tables itself (the TPU
@@ -23,12 +27,15 @@
 // request's K/V, so a prefill chunk of C tokens reads the context C
 // times, where the bound counts the unique bytes once.  The loop is
 // also serial per block, with no copy/compute overlap, and the dot
-// products run on CUDA cores, not tensor cores.
+// products run on CUDA cores, not tensor cores.  At decode (one token
+// per sequence) the grid is only sequences x KV heads, 64 blocks for
+// granite's 8 sequences on 132 SMs, each walking its whole context.
 //
 // What the next PR should do.  Tile the query rows of one request
 // together (a prefill chunk shares its K/V: read each tile once for all
-// C rows), double-buffer the K/V tiles with cp.async or TMA, and move
-// QK^T and PV onto mma/wgmma.
+// C rows), split a long context across blocks at decode and merge their
+// softmax partials, double-buffer the K/V tiles with cp.async or TMA,
+// and move QK^T and PV onto mma/wgmma.
 
 #include <math.h>
 
@@ -85,7 +92,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     l_s[tid] = 0.f;
   }
   const int lo = window > 0 ? max(0, q_len - window) : 0;
-  const int* table = block_tables + (size_t)req_rows[t] * nb;
+  const int row = req_rows != nullptr ? req_rows[t] : t;
+  const int* table = block_tables + (size_t)row * nb;
   const size_t row_stride = (size_t)KV * hd;   // one token's K/V row
 
   for (int ib = lo / bs; ib <= (q_len - 1) / bs; ++ib) {
@@ -181,4 +189,23 @@ extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
                                               window, scale, s);
   return repro_torch::launch<float>(q, k_pool, v_pool, bt, rows, lens, out, T,
                                     H, KV, hd, bs, nb, window, scale, s);
+}
+
+// q (B, H, hd), pools (NB, bs, KV, hd), block_tables (B, nb) and
+// lengths (B,) int32 -> out (B, H, hd): row b of the table is sequence
+// b's, its causal length lengths[b]; rows with length 0 write zeros.
+extern "C" int paged_attention(const void* q, const void* k_pool,
+                               const void* v_pool, const void* block_tables,
+                               const void* lengths, void* out, int B, int H,
+                               int KV, int hd, int bs, int nb, int window,
+                               float scale, int is_bf16, void* stream) {
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* lens = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return repro_torch::launch<__nv_bfloat16>(q, k_pool, v_pool, bt, nullptr,
+                                              lens, out, B, H, KV, hd, bs, nb,
+                                              window, scale, s);
+  return repro_torch::launch<float>(q, k_pool, v_pool, bt, nullptr, lens, out,
+                                    B, H, KV, hd, bs, nb, window, scale, s);
 }

@@ -42,6 +42,14 @@ SIGNATURES = {
     # T, H, N, P, stream
     "ragged_ssd_chunk_scan": (P, P, P, P, P, P, P, P, P, P,
                               I, I, I, I, P),
+    # q, k_pool, v_pool, block_tables, lengths, out,
+    # B, H, KV, hd, bs, nb, window, scale, is_bf16, stream
+    "paged_attention": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
+    # x, B, C, dA, dt, y, state, Bt, S, H, N, P, stream
+    "ssd_chunk_scan": (P, P, P, P, P, P, P, I, I, I, I, I, P),
+    # x, w, a_stack, b_stack, adapter_idx, xa, out,
+    # T, d, out_dim, n, r, rp, is_bf16, stream
+    "alora_qkv": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None     # the process's loaded library

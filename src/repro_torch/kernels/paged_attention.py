@@ -1,18 +1,22 @@
-"""Ragged paged attention: the hand-written Hopper kernel that replaces
-the reference's TPU kernel
-``repro/kernels/paged_attention.py::ragged_paged_attention``, with its
-plain PyTorch version beside it.
+"""Paged attention: the hand-written Hopper kernel that replaces the
+reference's two TPU kernels of ``repro/kernels/paged_attention.py``,
+with their plain PyTorch versions beside it.
 
-One query row per packed token (decode singletons and prefill-chunk
-rows in the same launch); each attends over its own request's paged
-K/V through ``block_tables[req_rows[t]]``, causal to ``q_lens[t]``,
-with an optional sliding window and an fp32 online softmax.  The CUDA
-source is ``repro_torch/csrc/paged_attention.cu``.
+- ``ragged_paged_attention``: one query row per packed token (decode
+  singletons and prefill-chunk rows in the same launch); each attends
+  over its own request's paged K/V through ``block_tables[req_rows[t]]``,
+  causal to ``q_lens[t]``.
+- ``paged_attention``: decode, one query per sequence over its own
+  table row up to ``lengths[b]``.
 
-``ragged_paged_attention`` sends a CUDA tensor to the kernel and a CPU
-tensor to :func:`ragged_paged_attention_ref`; nothing else selects
-between them.  ``ragged_paged_attention.launches`` counts kernel
-launches.
+Both take an optional sliding window and run an fp32 online softmax.
+On the TPU the two share one body; here they share one CUDA kernel
+(``repro_torch/csrc/paged_attention.cu``), which reads only the blocks
+that hold valid positions, so padding table entries may be any id.
+
+Each wrapper sends a CUDA tensor to the kernel and a CPU tensor to its
+plain version; nothing else selects between them.  Each counts its
+kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -59,11 +63,31 @@ def ragged_paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return out.reshape(T, H, hd).to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, block_tables, req_rows, q_lens):
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, block_tables: torch.Tensor,
+                        lengths: torch.Tensor, *,
+                        window: int = 0) -> torch.Tensor:
+    """Plain version of decode attention (a port of
+    ``repro/kernels/ref.py``'s ``paged_attention_ref``): the ragged plain
+    version with one token per sequence, ``req_rows = arange(B)`` and
+    ``q_lens = lengths`` (the two refs are the same function there).
+
+    q: (B, H, hd); k_pool/v_pool: (NB, bs, KV, hd); block_tables: (B, nb)
+    int32, padding entries any id; lengths: (B,) int32 valid tokens per
+    sequence.  Returns (B, H, hd).  Rows with ``lengths == 0`` hold a
+    uniform average over masked keys (the kernel writes zeros there)."""
+    rows = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)
+    return ragged_paged_attention_ref(q, k_pool, v_pool, block_tables, rows,
+                                      lengths, window=window)
+
+
+def _check(q, k_pool, v_pool, block_tables, **index):
+    """Device, dtype, contiguity and shape checks of one kernel call;
+    ``index`` holds the (T,) int32 vectors by name."""
     dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("req_rows", req_rows),
-                    ("q_lens", q_lens)):
+    named = dict(k_pool=k_pool, v_pool=v_pool, block_tables=block_tables,
+                 **index)
+    for name, t in named.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -71,13 +95,10 @@ def _check(q, k_pool, v_pool, block_tables, req_rows, q_lens):
                         "bfloat16")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError("q, k_pool and v_pool must share one dtype")
-    for name, t in (("block_tables", block_tables), ("req_rows", req_rows),
-                    ("q_lens", q_lens)):
+    for name, t in dict(block_tables=block_tables, **index).items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("req_rows", req_rows),
-                    ("q_lens", q_lens)):
+    for name, t in dict(q=q, **named).items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dim() != 3 or k_pool.dim() != 4 or block_tables.dim() != 2:
@@ -88,8 +109,9 @@ def _check(q, k_pool, v_pool, block_tables, req_rows, q_lens):
     if v_pool.shape != k_pool.shape or hd_k != hd or H % KV:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pools "
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    if req_rows.shape != (T,) or q_lens.shape != (T,):
-        raise ValueError("req_rows and q_lens must be (T,)")
+    for name, t in index.items():
+        if t.shape != (T,):
+            raise ValueError(f"{name} must be ({T},), got {tuple(t.shape)}")
     G = H // KV
     smem = 4 * (2 * G * hd + 2 * bs * hd + G * bs + 3 * G)
     if smem > _SMEM_LIMIT:
@@ -109,7 +131,8 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                           req_rows, q_lens, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_pool, v_pool, block_tables, req_rows, q_lens)
+    _check(q, k_pool, v_pool, block_tables, req_rows=req_rows,
+           q_lens=q_lens)
     T, H, hd = q.shape
     _, bs, KV, _ = k_pool.shape
     out = torch.empty_like(q)
@@ -128,3 +151,39 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 ragged_paged_attention.launches = 0
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Decode attention; shapes as in :func:`paged_attention_ref`, with
+    ``lengths[b] <= nb * bs``.  On a CUDA tensor the kernel runs (rows
+    with ``lengths == 0`` come back as zeros) and reads no block past a
+    sequence's length; on a CPU tensor the plain version does."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
+                                   window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k_pool, v_pool, block_tables, lengths=lengths)
+    B, H, hd = q.shape
+    _, bs, KV, _ = k_pool.shape
+    if block_tables.shape[0] != B:
+        raise ValueError(f"block_tables has {block_tables.shape[0]} rows "
+                         f"for {B} sequences")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = build.load()
+    err = lib.paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
+        KV, hd, bs, block_tables.shape[1], window, 1.0 / (hd ** 0.5),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,26 +1,30 @@
-"""Ragged SSD scan: the hand-written Hopper kernel that replaces the
-reference's TPU kernel ``repro/kernels/ssd_chunk.py::ragged_ssd_chunk_scan``,
-with its plain PyTorch version beside it.
+"""SSD scans: the hand-written Hopper kernels that replace the
+reference's two TPU kernels of ``repro/kernels/ssd_chunk.py``, each with
+its plain PyTorch version beside it.  Both run the Mamba2 recurrence
 
-The mixed serving step packs every scheduled token of the SSM layers
-(decode singletons and prefill chunks) along one token axis; each
-request's tokens form a contiguous segment.  At a segment start the
-recurrent state is gathered from ``init_states[slot_rows[t]]``; inside a
-segment the per-token recurrence runs on:
+  state_t = exp(dA_t) * state_{t-1} + dt_t * (B_t ⊗ x_t);   y_t = C_t · state_t
 
-  state_t = exp(dA_t) * entry + dt_t * (B_t ⊗ x_t);   y_t = C_t · state_t
+``ragged_ssd_chunk_scan`` is the mixed serving step's scan.  The step
+packs every scheduled token of the SSM layers (decode singletons and
+prefill chunks) along one token axis; each request's tokens form a
+contiguous segment, and at a segment start the state is gathered from
+``init_states[slot_rows[t]]``.  Both versions return the post-token
+state at every packed position; the caller gathers the segment-final
+rows for the live pool and the block-boundary rows for the prefix
+cache's snapshots.  The CUDA source (``repro_torch/csrc/ssd_chunk.cu``)
+runs the recurrent form, one block per (head, 16-column tile of P); the
+Pallas kernel's ``seg_ids`` input (needed only by its chunked form) and
+its padding of T to a chunk multiple are not needed.
 
-Both versions return the post-token state at every packed position; the
-caller gathers the segment-final rows for the live pool and the
-block-boundary rows for the prefix cache's snapshots.  The CUDA source
-(``repro_torch/csrc/ssd_chunk.cu``) runs the recurrent form, one block
-per (head, 16-column tile of P); the Pallas kernel's ``seg_ids`` input
-(needed only by its chunked form) and its padding of T to a chunk
-multiple are not needed.
+``ssd_chunk_scan`` is the dense, batched scan over full sequences from a
+zero state; it returns every y and the final state.  Its CUDA source
+(``repro_torch/csrc/ssd_chunk_dense.cu``) runs the chunked SSD form and
+needs no padding of S either.
 
-``ragged_ssd_chunk_scan`` sends a CUDA tensor to the kernel and a CPU
-tensor to :func:`ragged_ssd_scan_ref`; ``ragged_ssd_chunk_scan.launches``
-counts kernel launches.
+Each wrapper sends a CUDA tensor to its kernel and a CPU tensor to its
+plain version (:func:`ssd_chunk_ref`, :func:`ragged_ssd_scan_ref`), and
+counts its kernel launches in ``.launches``.  Both kernels take float32
+only.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from repro_torch.kernels import build
 
 _P_TILE = 16              # P columns per thread block
 _MAX_N = 256              # one thread per state row
+_DENSE_N_STEP = 32        # the dense scan: N a multiple of 32 ...
+_DENSE_MAX_N = 128        # ... and at most 128 (state rows in registers)
 
 
 def ragged_ssd_scan_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -136,3 +142,80 @@ def ragged_ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 
 
 ragged_ssd_chunk_scan.launches = 0
+
+
+def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                  dA: torch.Tensor, dt: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dense scan (a port of ``repro/kernels/ref.py``'s
+    ``ssd_chunk_ref``): one step of the token recurrence per position.
+
+    x: (Bt, S, H, P); B/C: (Bt, S, H, N); dA/dt: (Bt, S, H) float32.
+      state_t = exp(dA_t) * state_{t-1} + dt_t * (B_t ⊗ x_t)
+      y_t     = C_t · state_t
+    Returns (y (Bt, S, H, P) in x's dtype, final state (Bt, H, N, P)
+    float32)."""
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    state = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    ys = torch.empty((Bt, S, H, P), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        state = torch.exp(dA[:, t])[..., None, None] * state + \
+            (Bf[:, t] * dt[:, t, :, None])[..., None] * xf[:, t, :, None, :]
+        ys[:, t] = torch.einsum("bhn,bhnp->bhp", Cf[:, t], state)
+    return ys.to(x.dtype), state
+
+
+def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                   dA: torch.Tensor, dt: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense scan; shapes as in :func:`ssd_chunk_ref`, any S.  The
+    reference kernel's ``chunk`` argument is not taken: its result
+    depends on the chunk length only through rounding, and the CUDA
+    kernel tiles by its own 32-token chunk.  On a CUDA tensor the kernel
+    runs (float32 only; N a multiple of 32, at most 128); on a CPU tensor
+    the plain version does."""
+    if x.device.type == "cpu":
+        return ssd_chunk_ref(x, B, C, dA, dt)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    named = (("x", x), ("B", B), ("C", C), ("dA", dA), ("dt", dt))
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} dtype {t.dtype}: the kernel takes "
+                            "float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dim() != 4:
+        raise ValueError(f"expected x (Bt,S,H,P), got {tuple(x.shape)}")
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if B.shape != (Bt, S, H, N) or C.shape != (Bt, S, H, N) \
+            or dA.shape != (Bt, S, H) or dt.shape != (Bt, S, H):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, B {tuple(B.shape)}, C "
+            f"{tuple(C.shape)}, dA {tuple(dA.shape)}, dt {tuple(dt.shape)}")
+    if N % _DENSE_N_STEP or not 0 < N <= _DENSE_MAX_N:
+        raise ValueError(f"the kernel takes N a multiple of {_DENSE_N_STEP}, "
+                         f"at most {_DENSE_MAX_N}, got N={N}")
+    for name, t in (("B", B), ("C", C)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    y = torch.empty((Bt, S, H, P), dtype=torch.float32, device=x.device)
+    state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, state.zero_()
+    lib = build.load()
+    err = lib.ssd_chunk_scan(
+        x.data_ptr(), B.data_ptr(), C.data_ptr(), dA.data_ptr(),
+        dt.data_ptr(), y.data_ptr(), state.data_ptr(), Bt, S, H, N, P,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "ssd_chunk_scan")
+    ssd_chunk_scan.launches += 1
+    return y, state
+
+
+ssd_chunk_scan.launches = 0

@@ -1,7 +1,7 @@
 """The port's package rules: ``repro_torch`` (and ``chip_smoke.py``)
-import neither jax nor the JAX package, entry points default to the card
-and raise without one, and unported families raise naming their ROADMAP
-item."""
+import neither jax nor the JAX package nor its benchmarks, entry points
+default to the card and raise without one, and unported families raise
+naming their ROADMAP item."""
 import ast
 import os
 import subprocess
@@ -22,14 +22,19 @@ from repro_torch.serving.runner import ModelRunner, RunnerConfig
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-# the SSM slice's modules, which the import guard must load
+# the SSM and kernel-bench slices' modules, which the import guard must
+# load
 NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.configs.zamba2_2_7b",
-               "repro_torch.kernels.ssd_chunk", "repro_torch.models.ssm")
+               "repro_torch.kernels.ssd_chunk", "repro_torch.models.ssm",
+               "repro_torch.kernels.alora_qkv", "repro_torch.kernels.bench")
+
+
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+    return name.split(".")[0] in FORBIDDEN
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -44,11 +49,11 @@ def test_import_loads_neither_jax_nor_repro():
         f"{str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro')]\n"
+        f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         f"missing = set({NEW_MODULES!r}) - set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 24, names\n")
+        "assert len(names) >= 26, names\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
