@@ -17,13 +17,23 @@ Phases, each of which exits non-zero on failure:
    bfloat16), the grouped LoRA delta (granite's Q and K/V widths in
    float32 and bfloat16; in bfloat16 the fused SSM input projection of
    mamba2 and zamba2 and zamba2's Q/K/V), the ragged SSD scan (float32,
-   mamba2's N = 128 and zamba2's N = 64); and the kernel bench's three
-   kernels at small shapes that reach every masked edge, in each type
-   they take: decode paged attention (lengths ending inside a block,
-   with and without a 7-token window), the fused aLoRA QKV projection
-   (T, d and the output width off its tiles; a nonzero adapter in slot 0
-   and indices -1 and n, all of which must add no delta) and the dense
-   SSD chunk scan (S and P off its chunk and column slice);
+   mamba2's N = 128 and zamba2's N = 64), each attention time split by
+   the profiler into its tile and merge kernels, and attention timed
+   again with one decode row's context at 8,000 tokens over a 512-block
+   table (the grid's splits and scratch at the engine's default pool);
+   ragged paged attention
+   on a batch that reaches every tile and split edge (contexts around a
+   split boundary, a window across one, a prefill chunk longer than a
+   query tile and off its grid, interleaved rows, padded rows sharing a
+   tile) at granite's and zamba2's widths in both types; and the kernel
+   bench's three kernels at small shapes that reach every masked edge,
+   in each type they take: decode paged attention (lengths ending inside
+   a block, with and without a 7-token window, and lengths around a
+   split boundary, with and without a 24-token window), the fused aLoRA
+   QKV projection (T, d and the output width off its tiles; a nonzero
+   adapter in slot 0 and indices -1 and n, all of which must add no
+   delta) and the dense SSD chunk scan (S and P off its chunk and column
+   slice);
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
@@ -62,6 +72,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -232,21 +243,28 @@ def check_attention(torch, cfgs, timer, gen):
             entry["decode8"] = time_attention(
                 torch, F, timer, d8, args8, dtype_name,
                 ragged_paged_attention, ragged_paged_attention_ref)
+            entry["long"] = check_long_context(torch, F, timer, a, gen)
         res[key] = entry
         print(f"  ragged_paged_attention {label}: max|err| {err:.3e} "
               f"(row rel {row_rel:.3e}, tol {TOL[dtype_name]}; rel to the "
               f"batch's max {rel:.3e})", flush=True)
-        if "ms" in entry:
-            print(f"    kernel {entry['ms']:.3f} ms, plain "
-                  f"{entry['plain_ms']:.3f} ms, library "
-                  f"{entry['library_ms']:.3f} ms, bound "
-                  f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})",
-                  flush=True)
+        for name, e in (("", entry), ("decode T=8: ",
+                                      entry.get("decode8", {})),
+                        ("long context: ", entry.get("long", {}))):
+            if "ms" in e:
+                print(f"    {name}kernel {e['ms']:.4f} ms (device "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  e["device_split_ms"].items())
+                      + f"), plain {e['plain_ms']:.3f} ms, library "
+                      f"{e['library_ms']:.4f} ms, bound "
+                      f"{e['bound_ms']:.4f} ms ({e['bound_by']})",
+                      flush=True)
         del a, args, got, want, again
     return res
 
 
 def time_attention(torch, F, timer, a, args, dtype_name, kernel, plain):
+    from repro_torch.kernels.bench import device_split
     q = a["q"]
     T, H, hd = q.shape
     _, bs, KV, _ = a["k_pool"].shape
@@ -262,6 +280,8 @@ def time_attention(torch, F, timer, a, args, dtype_name, kernel, plain):
         + 4 * (a["block_tables"].numel() + 2 * T)
     bound_ms, bound_by = bound(nbytes, ops, dtype_name)
     ms = timer(lambda: kernel(*args))
+    # device ms per launch of each CUDA kernel of the call (tile, merge)
+    split = device_split(SimpleNamespace(args=args, kwargs={}), kernel, timer)
     plain_ms = timer(lambda: plain(*args))
     # library yardstick: scaled_dot_product_attention over K/V gathered
     # per token beforehand, with the same mask (timed here only)
@@ -277,7 +297,136 @@ def time_attention(torch, F, timer, a, args, dtype_name, kernel, plain):
         qq, k, v, attn_mask=mask, enable_gqa=True))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "ops": ops, "device_split_ms": split}
+
+
+def check_long_context(torch, F, timer, a, gen, ctx=8000, nbb=512):
+    """The mixed batch ``a`` with request 0's decode row grown to a
+    ``ctx``-token context over a table of ``nbb`` blocks, the engine's
+    default pool of 512: the table span, and so the grid's splits and the
+    fp32 split scratch, of a long context beside short ones (most blocks
+    of the grid exit at once).  Checked against the plain version and
+    timed; returns the times with the splits and the scratch's bytes."""
+    from repro_torch.kernels.paged_attention import (
+        plan, ragged_paged_attention, ragged_paged_attention_ref)
+    bs = a["k_pool"].shape[1]
+    dump = a["k_pool"].shape[0] - 1
+    tables = list(a["tables"])
+    tables[0] = torch.randperm(dump, generator=gen)[:-(-ctx // bs)].tolist()
+    lens = list(a["lens"])
+    lens[0] = ctx
+    bt = torch.full((a["block_tables"].shape[0], nbb), dump,
+                    dtype=torch.int32)
+    for r, t in enumerate(tables):
+        bt[r, :len(t)] = torch.tensor(t, dtype=torch.int32)
+    d = dict(a, block_tables=bt.to("cuda"), tables=tables, lens=lens,
+             q_lens=torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    args = (d["q"], d["k_pool"], d["v_pool"], d["block_tables"],
+            d["req_rows"], d["q_lens"])
+    got = ragged_paged_attention(*args)
+    want = ragged_paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    _, _, row_rel = rel_err(got, want, slice(0, d["n_real"]))
+    if row_rel > TOL["bfloat16"]:
+        fail(f"ragged_paged_attention long context: {row_rel} of a row's "
+             f"max|plain| > {TOL['bfloat16']}")
+    del got, want
+    q = d["q"]
+    p = plan(*q.shape[:2], d["k_pool"].shape[2], q.shape[2], bs, nbb)
+    res = time_attention(torch, F, timer, d, args, "bfloat16",
+                         ragged_paged_attention, ragged_paged_attention_ref)
+    res.update(context=ctx, table_blocks=nbb, row_rel_err=row_rel,
+               splits=p.grid[2], grid_blocks=p.grid[0] * p.grid[1]
+               * p.grid[2], scratch_bytes=4 * (p.partials[0] * p.partials[1]
+                                               * p.partials[2])
+               * (p.partials[3] + 2))
+    print(f"  ragged_paged_attention long context {ctx} over {nbb} blocks: "
+          f"row rel {row_rel:.3e}; {res['splits']} splits, "
+          f"{res['grid_blocks']} blocks, scratch "
+          f"{res['scratch_bytes'] / 1e6:.1f} MB", flush=True)
+    return res
+
+
+def edge_batch(torch, cfg, dtype, gen):
+    """A ragged batch at ``cfg``'s attention widths that reaches every
+    tile and split edge of the kernel (splits of 256 tokens; query tiles
+    of 64 / G rows): decode rows with contexts 255, 256, 257 and 560 (one
+    each side of a split boundary, one ending on a 16-token block); an
+    80-row prefill chunk at positions 200..279 packed from row 4 (longer
+    than a tile, off the tile grid, across a split boundary); 12 rows of
+    two requests interleaved (non-contiguous rows of one request); a
+    4-row chunk followed by 4 padded rows (q_lens 0) of the same request
+    row, which share its tile.  Table entries past each context point at
+    the pool's last block (the dump block)."""
+    bs, nb = 16, 48
+    KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    rows, lens = [0, 1, 2, 3], [255, 256, 257, 560]
+    rows += [4] * 80
+    lens += list(range(201, 281))
+    rows += [5, 6] * 6
+    lens += [p for i in range(6) for p in (300 + i, 600 + i)]
+    rows += [7] * 8
+    lens += [11, 12, 13, 14, 0, 0, 0, 0]
+    ctx = [255, 256, 257, 560, 280, 305, 605, 14]
+    NB = len(ctx) * nb + 1
+    perm = torch.randperm(NB - 1, generator=gen).tolist()
+    bt = torch.full((len(ctx), nb), NB - 1, dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(ctx):
+        nblk = -(-n // bs)
+        bt[r, :nblk] = torch.tensor(perm[used:used + nblk], dtype=torch.int32)
+        used += nblk
+    T = len(rows)
+    dev = "cuda"
+    args = (torch.randn((T, H, hd), generator=gen).to(dev, dtype),
+            torch.randn((NB, bs, KV, hd), generator=gen).to(dev, dtype),
+            torch.randn((NB, bs, KV, hd), generator=gen).to(dev, dtype),
+            bt.to(dev), torch.tensor(rows, dtype=torch.int32, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+    return args, torch.tensor(lens, device=dev) > 0
+
+
+def check_attention_edges(torch, cfgs, gen):
+    """Ragged paged attention on :func:`edge_batch` at granite's (G 4)
+    and zamba2's (G 1) widths, float32 and bfloat16, with no window and
+    a 24-token one (which straddles the split boundary for the context
+    257): within TOL of each live row's max |plain|, zeros on the padded
+    rows, and no output changed by NaN in the dump block.  Returns
+    {case: row relative error}."""
+    from repro_torch.kernels.paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_ref)
+    res = {}
+    for arch in ("granite", "zamba2"):
+        for dtype_name in ("float32", "bfloat16"):
+            args, live = edge_batch(torch, cfgs[arch],
+                                    getattr(torch, dtype_name), gen)
+            for window in (0, WINDOW):
+                key = f"ragged_{arch}_{dtype_name}_window{window}"
+                got = ragged_paged_attention(*args, window=window)
+                want = ragged_paged_attention_ref(*args, window=window)
+                torch.cuda.synchronize()
+                _, _, row_rel = rel_err(got, want, live)
+                if row_rel > TOL[dtype_name]:
+                    fail(f"ragged_paged_attention edges {key}: {row_rel} of "
+                         f"a row's max|plain| > {TOL[dtype_name]}")
+                if bool(got[~live].float().abs().max() != 0):
+                    fail(f"ragged_paged_attention edges {key}: q_lens == 0 "
+                         "rows are not zero")
+                args[1][-1] = float("nan")
+                args[2][-1] = float("nan")
+                again = ragged_paged_attention(*args, window=window)
+                torch.cuda.synchronize()
+                args[1][-1] = 0.0
+                args[2][-1] = 0.0
+                if not torch.equal(again, got):
+                    fail(f"ragged_paged_attention edges {key}: NaN in the "
+                         "dump block reached the output")
+                res[key] = row_rel
+                print(f"  {key}: {row_rel:.3e} of a row's max|plain| (tol "
+                      f"{TOL[dtype_name]}); zero rows and dump-block NaN "
+                      "held", flush=True)
+            del args, got, want, again
+    return res
 
 
 def lora_cases(cfgs):
@@ -436,7 +585,9 @@ def check_bench_edges(torch):
     """Decode attention, the fused aLoRA QKV projection and the dense SSD
     scan against their plain versions at small shapes that reach every
     masked edge, in float32 and bf16 (the scan float32 only): lengths 5,
-    17 and 40 over 16-token blocks, with no window and a 7-token one; T
+    17 and 40 over 16-token blocks, with no window and a 7-token one, and
+    lengths 255, 256, 257 and 560 around the kernel's 256-token split
+    boundary, with no window and a 24-token one; T
     100, d 264 and out 200 against 64 x 128 (bf16) and 64 x 64 (float32)
     tiles and 32- or 16-wide steps of d, rank 8 padded to 32, a nonzero
     adapter in slot 0 and indices -1 and n; S 70 and P 40 against 32-token
@@ -452,6 +603,16 @@ def check_bench_edges(torch):
                                 gen, "cuda", dtype, B=3, H=32, KV=8,
                                 hd=128, bs=16, lengths=[5, 17, 40], nb=4,
                                 window=window, name=f"edge_window{window}"))
+        # contexts each side of the kernel's 256-token split boundary and
+        # one ending on a block; the 24-token window straddles the
+        # boundary at 257
+        for window in (0, WINDOW):
+            builders.append(lambda dtype=dtype, window=window:
+                            bench.attention_case(
+                                gen, "cuda", dtype, B=4, H=32, KV=8,
+                                hd=128, bs=16, lengths=[255, 256, 257, 560],
+                                nb=48, window=window,
+                                name=f"split_window{window}"))
         builders.append(lambda dtype=dtype: bench.alora_case(
             gen, "cuda", dtype, T=100, d=264, out=200, n=4, r=8,
             name="edge", edge=True))
@@ -678,6 +839,9 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
     ops_per_step = sum(e.count for e in kernels) / n_steps
     scan_ms = sum(dev_us(e) for e in kernels
                   if "ragged_ssd_scan" in e.key) / 1e3 / n_steps
+    # ragged paged attention: its tile and merge kernels
+    attn_ms = sum(dev_us(e) for e in kernels
+                  if "paged_attention" in e.key) / 1e3 / n_steps
     state_bytes = 0
     if cfg.ssm is not None:
         _, nh, _ = ssm_dims(cfg)
@@ -719,6 +883,8 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
            else None, "device_ops_per_step": ops_per_step,
            "scan_device_ms_per_step": scan_ms,
            "scan_share_of_busy": scan_ms / busy_ms if busy_ms else None,
+           "attention_device_ms_per_step": attn_ms,
+           "attention_share_of_busy": attn_ms / busy_ms if busy_ms else None,
            # the scan's post-token state writes: one row per running
            # request (T = 4) per SSM layer, float32
            "scan_state_write_bytes_per_step": state_bytes,
@@ -733,9 +899,9 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
           f"  decode step: {step_ms:.3f} ms, device time not measured "
           "(the profiler saw no device events)", flush=True)
     print(f"  host us per eager launch: {launch_us:.2f}; device ops per "
-          f"step {ops_per_step:.0f}; ragged_ssd_chunk_scan {scan_ms:.3f} "
-          f"ms/step, its state writes {state_bytes / 1e6:.1f} MB/step",
-          flush=True)
+          f"step {ops_per_step:.0f}; ragged_paged_attention {attn_ms:.3f} "
+          f"ms/step; ragged_ssd_chunk_scan {scan_ms:.3f} ms/step, its "
+          f"state writes {state_bytes / 1e6:.1f} MB/step", flush=True)
     for k, (v, n) in out["top_device_ms_per_step"].items():
         print(f"    device {v:8.3f} ms/step  {n:7.1f} calls/step  {k}",
               flush=True)
@@ -920,6 +1086,7 @@ def main() -> None:
     gen = torch.Generator().manual_seed(0)
     timer = Timer("cuda")
     attn = check_attention(torch, cfgs, timer, gen)
+    attn_edges = check_attention_edges(torch, cfgs, gen)
     lora = check_lora(torch, cfgs, timer, gen)
     scan = check_ssd_scan(torch, timer, gen)
     edges = check_bench_edges(torch)
@@ -955,12 +1122,22 @@ def main() -> None:
             max_abs_err_fp32_window=attn["float32"]["max_abs_err_window"],
             tol_fp32=attn["float32"]["tol"],
             launches_zamba2=z["launches"]["ragged_paged_attention"],
+            device_split_ms=a16["device_split_ms"],
             decode8={k: a16["decode8"][k] for k in
                      ("ms", "plain_ms", "library_ms", "bound_ms",
-                      "bound_by")},
+                      "bound_by", "device_split_ms")},
+            long_context={k: a16["long"][k] for k in
+                          ("context", "table_blocks", "splits",
+                           "grid_blocks", "scratch_bytes", "row_rel_err",
+                           "ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_by", "device_split_ms")},
             zamba2={k: attn["zamba2_bfloat16"][k] for k in
                     ("max_abs_err", "row_rel_err", "tol", "ms", "plain_ms",
-                     "library_ms", "bound_ms", "bound_by")}),
+                     "library_ms", "bound_ms", "bound_by",
+                     "device_split_ms")},
+            decode_attention_device_ms_per_step=g["decode_profile"][
+                "attention_device_ms_per_step"],
+            edge_rel_err=attn_edges),
         kernel_entry(
             "ragged_grouped_lora", "src/repro_torch/csrc/ragged_lora.cu",
             "src/repro/kernels/ragged_lora.py:82",

@@ -30,9 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points (all return cudaError_t)
 SIGNATURES = {
-    # q, k_pool, v_pool, block_tables, req_rows, q_lens, out,
-    # T, H, KV, hd, bs, nb, window, scale, is_bf16, stream
-    "ragged_paged_attention": (P, P, P, P, P, P, P,
+    # q, k_pool, v_pool, block_tables, req_rows, q_lens, out, part_acc,
+    # part_ml, T, H, KV, hd, bs, nb, window, scale, is_bf16, stream
+    "ragged_paged_attention": (P, P, P, P, P, P, P, P, P,
                                I, I, I, I, I, I, I, F, I, P),
     # x, a_stack, b_stack, adapter_idx, active_slots, xa, out,
     # T, d, r, out_dim, n_slots, K, is_bf16, stream
@@ -42,9 +42,10 @@ SIGNATURES = {
     # T, H, N, P, stream
     "ragged_ssd_chunk_scan": (P, P, P, P, P, P, P, P, P, P,
                               I, I, I, I, P),
-    # q, k_pool, v_pool, block_tables, lengths, out,
+    # q, k_pool, v_pool, block_tables, lengths, out, part_acc, part_ml,
     # B, H, KV, hd, bs, nb, window, scale, is_bf16, stream
-    "paged_attention": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
+    "paged_attention": (P, P, P, P, P, P, P, P,
+                        I, I, I, I, I, I, I, F, I, P),
     # x, B, C, dA, dt, y, state, Bt, S, H, N, P, stream
     "ssd_chunk_scan": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     # x, w, a_stack, b_stack, adapter_idx, xa, out,

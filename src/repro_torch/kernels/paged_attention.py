@@ -10,22 +10,72 @@ with their plain PyTorch versions beside it.
   table row up to ``lengths[b]``.
 
 Both take an optional sliding window and run an fp32 online softmax.
-On the TPU the two share one body; here they share one CUDA kernel
-(``repro_torch/csrc/paged_attention.cu``), which reads only the blocks
-that hold valid positions, so padding table entries may be any id.
+On the TPU the two share one body; here they share one pair of CUDA
+kernels (``repro_torch/csrc/paged_attention.cu``): a tile kernel over
+(query tile, KV head, context split) and a small kernel that merges the
+splits of rows spanning more than one.  It reads only the positions
+that are valid for some row of a tile, so padding table entries may be
+any id.  :func:`plan` gives the launch (grid, tile size, scratch) from
+the shapes alone.
 
 Each wrapper sends a CUDA tensor to the kernel and a CPU tensor to its
 plain version; nothing else selects between them.  Each counts its
-kernel launches in ``.launches``.
+calls that launch the kernels in ``.launches``.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-_SMEM_LIMIT = 48 * 1024
+
+# the launch plan
+SPLIT = 256             # context tokens per split (grid.z): the CUDA
+                        # source's kSplit, which it also cuts the span by
+TILE_QUERY_ROWS = 64    # query rows (token x query head) per tile
+HEAD_DIMS = (32, 80, 128)   # the head sizes it is built for (the configs')
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How the kernel covers a call, from the shapes alone: one block
+    per (packed row, KV head, context split); a block whose row heads no
+    query tile, or whose split holds no valid position, exits at once.
+    The CUDA source sizes each block's shared memory (asserting at
+    compile time that it fits the card) from the dtype and hd."""
+    grid: Tuple[int, int, int]      # (T, KV, splits)
+    tile_rows: int                  # M: packed rows per query tile
+    # fp32 scratch of rows spanning several splits: the accumulators
+    # (T, H, splits, hd), then each split's max and sum (T, H, splits, 2);
+    # None when there is one split
+    partials: Optional[Tuple[int, int, int, int]]
+
+
+@functools.lru_cache(maxsize=256)
+def plan(T: int, H: int, KV: int, hd: int, bs: int, nb: int) -> Plan:
+    """The launch of one call with q (T, H, hd), pools (NB, bs, KV, hd)
+    and block tables (R, nb).  Raises ``ValueError`` for a shape the
+    kernel does not take."""
+    if KV <= 0 or H % KV:
+        raise ValueError(f"H {H} is not a multiple of KV {KV}")
+    G = H // KV
+    if TILE_QUERY_ROWS % G:
+        raise ValueError(f"G = H / KV = {G} query heads per KV head: the "
+                         f"kernel takes G dividing {TILE_QUERY_ROWS}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if bs <= 0 or bs & (bs - 1) or nb <= 0:
+        raise ValueError(f"block size {bs} must be a power of two and the "
+                         f"table width {nb} positive")
+    splits = -(-nb * bs // SPLIT)
+    return Plan(grid=(T, KV, splits), tile_rows=TILE_QUERY_ROWS // G,
+                partials=(T, H, splits, hd) if splits > 1 else None)
 
 
 def ragged_paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -81,24 +131,24 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                       lengths, window=window)
 
 
-def _check(q, k_pool, v_pool, block_tables, **index):
-    """Device, dtype, contiguity and shape checks of one kernel call;
-    ``index`` holds the (T,) int32 vectors by name."""
-    dev = q.device
-    named = dict(k_pool=k_pool, v_pool=v_pool, block_tables=block_tables,
-                 **index)
-    for name, t in named.items():
+def _check(q, k_pool, v_pool, block_tables, **index) -> Plan:
+    """Device, dtype, contiguity, alignment and shape checks of one
+    kernel call, and its launch plan; ``index`` holds the (T,) int32
+    vectors by name.  One pass over the tensors: it runs on every
+    launch, on the host, ahead of the kernel."""
+    dev, dtype = q.device, q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q dtype {dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    i32 = torch.int32
+    for name, t, want in (("q", q, dtype), ("k_pool", k_pool, dtype),
+                          ("v_pool", v_pool, dtype),
+                          ("block_tables", block_tables, i32),
+                          *((n, t, i32) for n, t in index.items())):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
-                        "bfloat16")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("q, k_pool and v_pool must share one dtype")
-    for name, t in dict(block_tables=block_tables, **index).items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in dict(q=q, **named).items():
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dim() != 3 or k_pool.dim() != 4 or block_tables.dim() != 2:
@@ -112,11 +162,35 @@ def _check(q, k_pool, v_pool, block_tables, **index):
     for name, t in index.items():
         if t.shape != (T,):
             raise ValueError(f"{name} must be ({T},), got {tuple(t.shape)}")
-    G = H // KV
-    smem = 4 * (2 * G * hd + 2 * bs * hd + G * bs + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"tile needs {smem} B of shared memory, above the "
-                         f"kernel's {_SMEM_LIMIT} B")
+    if (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("q, k_pool and v_pool must be 16-byte aligned")
+    return plan(T, H, KV, hd, bs, block_tables.shape[1])
+
+
+def _launch(fn, p: Plan, q, k_pool, v_pool, block_tables, *index, window):
+    """Run the C entry ``fn`` under plan ``p``: allocates the output and
+    the split partials, launches, raises on a launch error."""
+    T, H, hd = q.shape
+    _, bs, KV, _ = k_pool.shape
+    out = torch.empty_like(q)
+    if T == 0:
+        return out
+    acc = ml = 0
+    if p.partials is not None:
+        n_acc = T * H * p.grid[2] * hd
+        scratch = torch.empty(n_acc + T * H * p.grid[2] * 2,
+                              dtype=torch.float32, device=q.device)
+        acc = scratch.data_ptr()
+        ml = acc + 4 * n_acc
+    err = getattr(build.load(), fn)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), *(t.data_ptr() for t in index),
+        out.data_ptr(), acc, ml, T, H, KV, hd, bs,
+        block_tables.shape[1], window, 1.0 / (hd ** 0.5),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, fn)
+    return out
 
 
 def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -131,22 +205,12 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                           req_rows, q_lens, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_pool, v_pool, block_tables, req_rows=req_rows,
-           q_lens=q_lens)
-    T, H, hd = q.shape
-    _, bs, KV, _ = k_pool.shape
-    out = torch.empty_like(q)
-    if T == 0:
-        return out
-    lib = build.load()
-    err = lib.ragged_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), req_rows.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), T, H, KV, hd, bs, block_tables.shape[1], window,
-        1.0 / (hd ** 0.5), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "ragged_paged_attention")
-    ragged_paged_attention.launches += 1
+    p = _check(q, k_pool, v_pool, block_tables, req_rows=req_rows,
+               q_lens=q_lens)
+    out = _launch("ragged_paged_attention", p, q, k_pool, v_pool,
+                  block_tables, req_rows, q_lens, window=window)
+    if q.shape[0]:
+        ragged_paged_attention.launches += 1
     return out
 
 
@@ -165,24 +229,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                    window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_pool, v_pool, block_tables, lengths=lengths)
-    B, H, hd = q.shape
-    _, bs, KV, _ = k_pool.shape
+    p = _check(q, k_pool, v_pool, block_tables, lengths=lengths)
+    B = q.shape[0]
     if block_tables.shape[0] != B:
         raise ValueError(f"block_tables has {block_tables.shape[0]} rows "
                          f"for {B} sequences")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    lib = build.load()
-    err = lib.paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
-        KV, hd, bs, block_tables.shape[1], window, 1.0 / (hd ** 0.5),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_attention")
-    paged_attention.launches += 1
+    out = _launch("paged_attention", p, q, k_pool, v_pool, block_tables,
+                  lengths, window=window)
+    if B:
+        paged_attention.launches += 1
     return out
 
 
