@@ -14,18 +14,25 @@ Phases, each of which exits non-zero on failure:
    the same work, and the time of one library call computing the same
    function where there is one: ragged paged attention (granite-3.2-8b's
    GQA widths in float32 and bfloat16, zamba2-2.7b's MHA at hd 80 in
-   bfloat16), the grouped LoRA delta (granite's Q and K/V widths in
-   float32 and bfloat16; in bfloat16 the fused SSM input projection of
-   mamba2 and zamba2 and zamba2's Q/K/V), the ragged SSD scan (float32,
-   mamba2's N = 128 and zamba2's N = 64), each attention time split by
-   the profiler into its tile and merge kernels, and attention timed
+   bfloat16), the grouped LoRA delta (its fused Q/K/V entry at
+   granite's widths in float32 and bfloat16 and at zamba2's in
+   bfloat16, its one-pair entry at the SSM input projections of mamba2
+   and zamba2 in bfloat16; timed at T = 128 and at a T = 4 decode step),
+   the ragged SSD scan (float32, mamba2's N = 128 and zamba2's N = 64,
+   with the runner's kept rows; timed at T = 128 and T = 4), each time
+   split by the profiler into the call's CUDA kernels, and attention timed
    again with one decode row's context at 8,000 tokens over a 512-block
    table (the grid's splits and scratch at the engine's default pool);
    ragged paged attention
    on a batch that reaches every tile and split edge (contexts around a
    split boundary, a window across one, a prefill chunk longer than a
    query tile and off its grid, interleaved rows, padded rows sharing a
-   tile) at granite's and zamba2's widths in both types; and the kernel
+   tile) at granite's and zamba2's widths in both types; the fused
+   Q/K/V LoRA entry at T = 1, 4, 37 and 128 and ranks 8 and 256 in both
+   types (NaN in slot 0 and in an inactive slot must change no output,
+   rows on no active slot must be exact zeros); the ragged scan with kept
+   rows unsorted, repeated and inside a segment, and NaN in every entry
+   row no segment start reads (no output may change); and the kernel
    bench's three kernels at small shapes that reach every masked edge,
    in each type they take: decode paged attention (lengths ending inside
    a block, with and without a 7-token window, and lengths around a
@@ -38,8 +45,11 @@ Phases, each of which exits non-zero on failure:
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
    granite-3.2-8b (attention), mamba2-2.7b (pure SSM) and zamba2-2.7b
-   (hybrid), the SSM models reusing the base requests' state snapshots;
-   a decode-window profile follows granite and mamba2;
+   (hybrid), the SSM models reusing the base requests' state snapshots
+   (one fused Q/K/V LoRA call per attention layer and step, one
+   in-projection call and one scan per SSM layer and step); granite's
+   run records each step's packed and adapted tokens; a decode-window
+   profile follows granite and mamba2;
 4. parity of the kernel path: the reduced float32 granite, mamba2 and
    zamba2 with two adapters cycling through one device slot, the same
    weights and the same pipeline on the card and on the CPU — identical
@@ -430,154 +440,369 @@ def check_attention_edges(torch, cfgs, gen):
 
 
 def lora_cases(cfgs):
-    """(key, dtype, d, out) of every shape the main paths give the
-    grouped LoRA delta: granite's Q and K/V projections (float32 and
-    bfloat16), the fused SSM input projection of mamba2 and zamba2, and
-    zamba2's Q/K/V (bfloat16)."""
+    """(key, dtype, d, out widths) of every shape the main paths give the
+    grouped LoRA delta: granite's fused Q/K/V (float32 and bfloat16),
+    zamba2's fused Q/K/V, and the SSM input projection of mamba2 and
+    zamba2 (bfloat16; one pair)."""
     from repro_torch.models.ssm import in_proj_dim
     g, m, z = cfgs["granite"], cfgs["mamba2"], cfgs["zamba2"]
-    cases = [(f"{dt}_out{out}", dt, g.d_model, out)
-             for dt in ("float32", "bfloat16")
-             for out in (g.num_heads * g.head_dim,
-                         g.num_kv_heads * g.head_dim)]
-    cases += [(f"bfloat16_mamba2_in_proj_out{in_proj_dim(m)}", "bfloat16",
-               m.d_model, in_proj_dim(m)),
-              (f"bfloat16_zamba2_in_proj_out{in_proj_dim(z)}", "bfloat16",
-               z.d_model, in_proj_dim(z)),
-              (f"bfloat16_zamba2_qkv_out{z.num_heads * z.head_dim}",
-               "bfloat16", z.d_model, z.num_heads * z.head_dim)]
-    return cases
+    qkv = lambda c: (c.num_heads * c.head_dim,  # noqa: E731
+                     c.num_kv_heads * c.head_dim, c.num_kv_heads * c.head_dim)
+    return [(f"{dt}_qkv", dt, g.d_model, qkv(g))
+            for dt in ("float32", "bfloat16")] + [
+        ("bfloat16_zamba2_qkv", "bfloat16", z.d_model, qkv(z)),
+        (f"bfloat16_mamba2_in_proj_out{in_proj_dim(m)}", "bfloat16",
+         m.d_model, (in_proj_dim(m),)),
+        (f"bfloat16_zamba2_in_proj_out{in_proj_dim(z)}", "bfloat16",
+         z.d_model, (in_proj_dim(z),))]
+
+
+def lora_inputs(torch, gen, dtype, T, d, r, widths, idx):
+    """x (T, d) and one rank-r stack pair per width over 3 resident slots
+    (slot 0 zero), and the 2 active slots [1, 2]."""
+    S = 3
+    x = torch.randn((T, d), generator=gen).to("cuda", dtype)
+    pairs = []
+    for out in widths:
+        a = torch.randn((S + 1, d, r), generator=gen) / d ** 0.5
+        b = torch.randn((S + 1, r, out), generator=gen) * (0.02 / r ** 0.5)
+        a[0] = 0
+        b[0] = 0
+        pairs.append((a.to("cuda", dtype), b.to("cuda", dtype)))
+    act = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+    return x, pairs, idx.to("cuda"), act
+
+
+def lora_call(pairs):
+    """The entry point for ``pairs``: the fused Q/K/V one for three."""
+    from repro_torch.kernels.ragged_lora import (ragged_grouped_lora,
+                                                 ragged_grouped_lora_qkv)
+    if len(pairs) == 3:
+        return ragged_grouped_lora_qkv, lambda *a: ragged_grouped_lora_qkv(
+            *a[:1], *a[1], *a[2:])
+    return ragged_grouped_lora, lambda x, p, i, s: (
+        ragged_grouped_lora(x, *p[0], i, s),)
+
+
+def lora_plain(x, pairs, idx, act):
+    from repro_torch.kernels.ragged_lora import ragged_grouped_lora_ref
+    return tuple(ragged_grouped_lora_ref(x, a, b, idx, act) for a, b in pairs)
+
+
+def lora_errors(got, want):
+    """The largest (max |err|, that over max |plain|, largest row rel)
+    over the outputs, by relative error."""
+    return max((rel_err(g, w) for g, w in zip(got, want)),
+               key=lambda e: e[1])
+
+
+def lora_bound(x, pairs, idx, act):
+    """What this call's data needs: bytes (the x rows on a used slot,
+    A and B of each used slot once, the deltas written, the index
+    vectors) and operations (2 r (d + out) per row on a used slot and
+    pair); a used slot is an active one (> 0) that some row is on."""
+    T, d = x.shape
+    r = pairs[0][0].shape[-1]
+    es = x.element_size()
+    widths = [b.shape[-1] for _, b in pairs]
+    used = (set(idx.tolist()) & set(act.tolist())) - {0}
+    on = sum(int((idx == s).sum()) for s in used)
+    nbytes = (on * d + sum(len(used) * (d * r + r * o) + T * o
+                           for o in widths)) * es + 4 * (T + act.shape[0])
+    ops = sum(on * 2 * r * (d + o) for o in widths)
+    return nbytes, ops
+
+
+def time_lora(timer, x, pairs, idx, act, dtype_name):
+    """Event ms, profiler device ms per CUDA kernel, plain ms and bound
+    of one call."""
+    from repro_torch.kernels.bench import device_split
+    fn, call = lora_call(pairs)
+    nbytes, ops = lora_bound(x, pairs, idx, act)
+    bound_ms, bound_by = bound(nbytes, ops, dtype_name)
+    args = (x, *pairs, idx, act) if len(pairs) == 3 \
+        else (x, *pairs[0], idx, act)
+    return {"ms": timer(lambda: call(x, pairs, idx, act)),
+            "device_split_ms": device_split(
+                SimpleNamespace(args=args, kwargs={}), fn, timer),
+            "plain_ms": timer(lambda: lora_plain(x, pairs, idx, act)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": ops, "T": x.shape[0]}
 
 
 def check_lora(torch, cfgs, timer, gen):
-    from repro_torch.kernels.ragged_lora import (ragged_grouped_lora,
-                                                 ragged_grouped_lora_ref)
-    T, r, S = 128, 32, 3
-    active = [1, 2]                 # 3 resident slots, 2 active
+    """The grouped LoRA delta against its plain version at every main
+    path shape (T = 128; 3 resident slots, 2 active, rows on slot 0 and on
+    the inactive slot 3 too; rank 32): within TOL of max |plain|, exact
+    zeros on the rows of slot 0 and slot 3.  bf16 cases are also checked
+    at a decode step, T = 4 with every row on slot 1 (an aLoRA
+    evaluator's decode), and timed at both."""
+    T, r = 128, 32
     idx = torch.tensor([0, 1, 2, 3] * (T // 4), dtype=torch.int32)
     idx = idx[torch.randperm(T, generator=gen)]
     res = {}
-    for key, dtype_name, d, out_dim in lora_cases(cfgs):
+    for key, dtype_name, d, widths in lora_cases(cfgs):
         dtype = getattr(torch, dtype_name)
-        x = torch.randn((T, d), generator=gen).to("cuda", dtype)
-        a = (torch.randn((S + 1, d, r), generator=gen) / d ** 0.5)
-        b = torch.randn((S + 1, r, out_dim), generator=gen) \
-            * (0.02 / r ** 0.5)
-        a[0] = 0
-        b[0] = 0
-        a, b = a.to("cuda", dtype), b.to("cuda", dtype)
-        ii = idx.to("cuda")
-        act = torch.tensor(active, dtype=torch.int32, device="cuda")
-        got = ragged_grouped_lora(x, a, b, ii, act)
-        want = ragged_grouped_lora_ref(x, a, b, ii, act)
+        x, pairs, ii, act = lora_inputs(torch, gen, dtype, T, d, r, widths,
+                                        idx)
+        _, call = lora_call(pairs)
+        got = call(x, pairs, ii, act)
+        want = lora_plain(x, pairs, ii, act)
         torch.cuda.synchronize()
-        err, rel, row_rel = rel_err(got, want)
+        err, rel, row_rel = lora_errors(got, want)
         if rel > TOL[dtype_name]:
-            fail(f"ragged_grouped_lora {key} (d {d}): max|err| {err} = {rel} "
-                 f"of max|plain| > {TOL[dtype_name]}")
+            fail(f"grouped LoRA {key} (d {d}): max|err| {err} = {rel} of "
+                 f"max|plain| > {TOL[dtype_name]}")
         inactive = (ii == 0) | (ii == 3)
-        if bool(got[inactive].float().abs().max() != 0):
-            fail("ragged_grouped_lora: slot 0 or an inactive slot "
-                 "leaked into the delta")
-        res[key] = {"d": d, "out": out_dim, "max_abs_err": err,
+        if any(bool(g[inactive].float().abs().max() != 0) for g in got):
+            fail(f"grouped LoRA {key}: slot 0 or an inactive slot leaked "
+                 "into the delta")
+        res[key] = {"d": d, "out": list(widths), "max_abs_err": err,
                     "rel_err": rel, "row_rel_err": row_rel,
                     "tol": TOL[dtype_name]}
         msg = ""
         if dtype_name == "bfloat16":
-            es = x.element_size()
-            n_on = int(((ii == 1) | (ii == 2)).sum())
-            nbytes = (T * d + len(active) * (d * r + r * out_dim)
-                      + T * out_dim) * es + 4 * (T + len(active))
-            ops = n_on * 2 * r * (d + out_dim)
-            bound_ms, bound_by = bound(nbytes, ops, dtype_name)
-            res[key].update(
-                ms=timer(lambda: ragged_grouped_lora(x, a, b, ii, act)),
-                plain_ms=timer(lambda: ragged_grouped_lora_ref(
-                    x, a, b, ii, act)),
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, ops=ops)
-            msg = (f"; kernel {res[key]['ms']:.3f} ms, plain "
-                   f"{res[key]['plain_ms']:.3f} ms, bound {bound_ms:.5f} ms")
-        print(f"  ragged_grouped_lora {key} (d {d}): max|err| {err:.3e} "
-              f"(rel {rel:.3e}, tol {TOL[dtype_name]}; largest row rel "
-              f"{row_rel:.3e}){msg}", flush=True)
+            res[key].update(time_lora(timer, x, pairs, ii, act, dtype_name))
+            one = torch.ones(4, dtype=torch.int32, device="cuda")
+            x4 = x[:4].contiguous()
+            got4 = call(x4, pairs, one, act)
+            want4 = lora_plain(x4, pairs, one, act)
+            torch.cuda.synchronize()
+            err4, rel4, row_rel4 = lora_errors(got4, want4)
+            if rel4 > TOL[dtype_name]:
+                fail(f"grouped LoRA {key} T=4: max|err| {err4} = {rel4} of "
+                     f"max|plain| > {TOL[dtype_name]}")
+            res[key]["decode4"] = time_lora(timer, x4, pairs, one, act,
+                                            dtype_name)
+            res[key]["decode4"].update(max_abs_err=err4, rel_err=rel4,
+                                       row_rel_err=row_rel4)
+            e, e4 = res[key], res[key]["decode4"]
+            msg = "".join(
+                f"; {name} kernel {t['ms']:.4f} ms (device " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in t["device_split_ms"].items())
+                + f"), plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.5f} ms"
+                for name, t in (("T=128", e), ("T=4", e4))) + (
+                f"; T=4 max|err| {err4:.3e} (rel {rel4:.3e})")
+        print(f"  grouped LoRA {key} (d {d}, out {widths}): max|err| "
+              f"{err:.3e} (rel {rel:.3e}, tol {TOL[dtype_name]}; largest "
+              f"row rel {row_rel:.3e}){msg}", flush=True)
+        del x, pairs, got, want
     return res
 
 
-def scan_inputs(torch, H, N, P, gen, T=128, S=9):
-    """A main-path mixed batch of the SSM layers at T = 128: 6 decode
-    singletons (each a segment start reading its run slot's state), a
-    64-row prefill chunk continuing a request from its live state, a
-    48-row first chunk, and 10 padded rows on the dump slot (S - 1).
-    Random finite entry states, dA <= 0."""
+def check_lora_edges(torch, cfgs, gen):
+    """The fused Q/K/V entry at granite's widths against its plain
+    version, float32 and bfloat16, at T = 1, 4, 37 and 128 and ranks 8
+    and 256 (rows on slot 0, the active slots 1 and 2 and the inactive
+    slot 3); then, at each T and type: every row inactive gives exact
+    zeros, and NaN written into A[0], B[0] and slot 3's A and B changes
+    no output.  Returns {case: relative error}."""
+    g = cfgs["granite"]
+    widths = (g.num_heads * g.head_dim, g.num_kv_heads * g.head_dim,
+              g.num_kv_heads * g.head_dim)
+    res = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for T in (1, 4, 37, 128):
+            idx = torch.tensor([1, 2, 0, 3] * T, dtype=torch.int32)[:T]
+            for r in (8, 256):
+                key = f"qkv_{dtype_name}_T{T}_r{r}"
+                x, pairs, ii, act = lora_inputs(torch, gen, dtype, T,
+                                                g.d_model, r, widths, idx)
+                _, call = lora_call(pairs)
+                got = call(x, pairs, ii, act)
+                want = lora_plain(x, pairs, ii, act)
+                torch.cuda.synchronize()
+                _, rel, _ = lora_errors(got, want)
+                if rel > TOL[dtype_name]:
+                    fail(f"grouped LoRA edges {key}: {rel} of max|plain| > "
+                         f"{TOL[dtype_name]}")
+                for a, b in pairs:
+                    for slot in (0, 3):
+                        a[slot] = float("nan")
+                        b[slot] = float("nan")
+                again = call(x, pairs, ii, act)
+                dead = call(x, pairs, torch.full_like(ii, 3), act)
+                torch.cuda.synchronize()
+                if not all(torch.equal(u, v) for u, v in zip(again, got)):
+                    fail(f"grouped LoRA edges {key}: NaN in slot 0 or the "
+                         "inactive slot reached the output")
+                if any(bool(o.float().abs().max() != 0) for o in dead):
+                    fail(f"grouped LoRA edges {key}: rows on no active slot "
+                         "are not exact zeros")
+                res[key] = rel
+                print(f"  grouped LoRA {key}: {rel:.3e} of max|plain| (tol "
+                      f"{TOL[dtype_name]}); NaN in slots 0 and 3 and all-"
+                      "inactive rows held", flush=True)
+                del x, pairs, got, want, again, dead
+    return res
+
+
+MIXED_SEGS = [(t, 1, t) for t in range(6)] + [(6, 64, 6), (70, 48, 7)]
+
+
+def scan_inputs(torch, H, N, P, gen, T=128, segs=MIXED_SEGS, S=9):
+    """A batch of the SSM layers: segments (first token, length, run
+    slot) and, past them, padded rows on the dump slot (S - 1), each a
+    segment start.  The default is a main-path mixed step at T = 128: 6
+    decode singletons (each a segment start reading its run slot's
+    state), a 64-row prefill chunk continuing a request from its live
+    state, a 48-row first chunk and 10 padded rows.  Random finite entry
+    states, dA <= 0.  The kept rows are the runner's: each request's last
+    token, then the 16-token block boundaries inside the chunks, each
+    list padded with row 0 to a power of two (at least one row)."""
     starts = torch.zeros(T, dtype=torch.int32)
     slots = torch.full((T,), S - 1, dtype=torch.int32)
-    segs = [(t, 1, t) for t in range(6)] + [(6, 64, 6), (70, 48, 7)]
     for t0, n, slot in segs:
         starts[t0] = 1
         slots[t0:t0 + n] = slot
-    n_real = 6 + 64 + 48
-    starts[n_real:] = 1
+    starts[sum(n for _, n, _ in segs):] = 1
     dt = torch.rand((T, H), generator=gen) * 0.1
     dA = -dt * torch.rand((H,), generator=gen)[None] * 8
     x = torch.randn((T, H, P), generator=gen)
     B = torch.randn((T, H, N), generator=gen)
     C = torch.randn((T, H, N), generator=gen)
     init = torch.randn((S, H, N, P), generator=gen)
-    args = tuple(a.to("cuda") for a in (x, B, C, dA, dt, starts, slots,
-                                         init))
-    # the entry rows this batch's segment starts read
-    n_init = len({int(slots[t]) for t in range(T) if starts[t]})
-    return args, n_init
+    pow2 = lambda n: 1 << max(n - 1, 0).bit_length()  # noqa: E731
+    last = [t0 + n - 1 for t0, n, _ in segs]
+    snaps = [t for t0, n, _ in segs if n > 1 for t in range(t0, t0 + n)
+             if (t - t0) % 16 == 15]
+    out_rows = torch.tensor(
+        last + [0] * (pow2(len(last)) - len(last))
+        + snaps + [0] * (pow2(len(snaps)) - len(snaps)), dtype=torch.int32)
+    return tuple(a.to("cuda") for a in (x, B, C, dA, dt, starts, slots,
+                                         init, out_rows))
+
+
+def check_scan_case(torch, args, label):
+    """The kernel against its plain version on ``args``: y within 1e-4 of
+    each token row's max |plain|, the kept states within 1e-4 of each
+    (row, head)'s; returns the outputs and the errors."""
+    from repro_torch.kernels.ssd_chunk import (ragged_ssd_chunk_scan,
+                                               ragged_ssd_scan_ref)
+    y, st = ragged_ssd_chunk_scan(*args)
+    yr, sr = ragged_ssd_scan_ref(*args[:8])
+    sr = sr[args[8].long()]
+    torch.cuda.synchronize()
+    T, H = y.shape[:2]
+    M = st.shape[0]
+    err_y, _, row_y = rel_err(y, yr)
+    err_s, _, row_s = rel_err(st.reshape(M * H, -1), sr.reshape(M * H, -1))
+    tol = TOL["float32"]
+    if row_y > tol or row_s > tol:
+        fail(f"ragged_ssd_chunk_scan {label}: y max|err| {err_y} ({row_y} "
+             f"of a row's max|plain|), states {err_s} ({row_s}) > {tol}")
+    return y, st, err_y, row_y, err_s, row_s
+
+
+def time_scan(torch, timer, args, n_plain=5):
+    """Event ms, profiler device ms, plain ms and bound of one call.
+    Bytes: every input once (the entry rows the segment starts read), y
+    and the kept states written once; four float32 operations per (token,
+    head, n, p)."""
+    from repro_torch.kernels.bench import device_split
+    from repro_torch.kernels.ssd_chunk import (ragged_ssd_chunk_scan,
+                                               ragged_ssd_scan_ref)
+    x, B, C, dA, dt, starts, slots, init, out_rows = args
+    T, H, P = x.shape
+    N = B.shape[-1]
+    M = out_rows.shape[0]
+    n_init = len({int(slots[t]) for t in range(T) if int(starts[t])})
+    nbytes = 4 * (T * H * P + 2 * T * H * N + 2 * T * H + 2 * T + M
+                  + n_init * H * N * P + T * H * P + M * H * N * P)
+    ops = 4 * T * H * N * P
+    bound_ms, bound_by = bound(nbytes, ops, "float32")
+    return {"ms": timer(lambda: ragged_ssd_chunk_scan(*args)),
+            "device_split_ms": device_split(
+                SimpleNamespace(args=args, kwargs={}), ragged_ssd_chunk_scan,
+                timer),
+            "plain_ms": timer(lambda: ragged_ssd_scan_ref(*args[:8]),
+                              n=n_plain, warmup=1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": ops, "T": T, "kept_rows": M}
 
 
 def check_ssd_scan(torch, timer, gen):
     """The ragged SSD scan against its plain version at mamba2's (H 80,
-    N 128, P 64) and zamba2's (N 64) widths.  Both are float32 and differ
-    only in the order of the sum over n: y within 1e-4 of each token
-    row's max |plain|, the states within 1e-4 of each (token, head)
-    row's max |plain|."""
-    from repro_torch.kernels.ssd_chunk import (ragged_ssd_chunk_scan,
-                                               ragged_ssd_scan_ref)
+    N 128, P 64) and zamba2's (N 64) widths on the T = 128 batch, timed
+    there and at a decode step (T = 4, four segment starts, each row
+    kept).  Both are float32 and differ only in the order of the sums."""
     res = {}
     for arch, N in (("mamba2", 128), ("zamba2", 64)):
         H, P = 80, 64
-        args, n_init = scan_inputs(torch, H, N, P, gen)
-        y, st = ragged_ssd_chunk_scan(*args)
-        yr, sr = ragged_ssd_scan_ref(*args)
-        torch.cuda.synchronize()
-        T = y.shape[0]
-        err_y, _, row_y = rel_err(y, yr)
-        err_s, _, row_s = rel_err(st.reshape(T * H, N * P),
-                                  sr.reshape(T * H, N * P))
-        tol = TOL["float32"]
-        if row_y > tol or row_s > tol:
-            fail(f"ragged_ssd_chunk_scan N={N}: y max|err| {err_y} ({row_y} "
-                 f"of a row's max|plain|), states {err_s} ({row_s}) > {tol}")
-        print(f"  ragged_ssd_chunk_scan float32 {arch} (H {H}, N {N}, P {P}, "
-              f"T {T}): y max|err| {err_y:.3e} (row rel {row_y:.3e}), "
-              f"states {err_s:.3e} (row rel {row_s:.3e}), tol {tol}",
-              flush=True)
-        # bytes: every input once (the entry rows this batch's segment
-        # starts read), y and the post-token states written once; four
-        # float32 operations per (token, head, n, p)
-        nbytes = 4 * (T * H * P + 2 * T * H * N + 2 * T * H + 2 * T
-                      + n_init * H * N * P + T * H * P + T * H * N * P)
-        ops = 4 * T * H * N * P
-        bound_ms, bound_by = bound(nbytes, ops, "float32")
+        args = scan_inputs(torch, H, N, P, gen)
+        _, _, err_y, row_y, err_s, row_s = check_scan_case(
+            torch, args, f"{arch} T=128")
         res[arch] = {"N": N, "max_abs_err": max(err_y, err_s),
                      "max_abs_err_y": err_y, "max_abs_err_states": err_s,
                      "row_rel_err_y": row_y, "row_rel_err_states": row_s,
-                     "tol": tol,
-                     "ms": timer(lambda: ragged_ssd_chunk_scan(*args)),
-                     "plain_ms": timer(lambda: ragged_ssd_scan_ref(*args),
-                                       n=5, warmup=1),
-                     "library_ms": None, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bytes": nbytes, "ops": ops}
-        print(f"    kernel {res[arch]['ms']:.3f} ms, plain "
-              f"{res[arch]['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
-        del args, y, st, yr, sr
+                     "tol": TOL["float32"]}
+        res[arch].update(time_scan(torch, timer, args))
+        # a decode step: four requests, each a segment start, each kept
+        dec = scan_inputs(torch, H, N, P, gen, T=4,
+                          segs=[(t, 1, t) for t in range(4)])
+        check_scan_case(torch, dec, f"{arch} T=4")
+        res[arch]["decode4"] = time_scan(torch, timer, dec)
+        e, e4 = res[arch], res[arch]["decode4"]
+        print(f"  ragged_ssd_chunk_scan float32 {arch} (H {H}, N {N}, P {P}, "
+              f"T 128, {e['kept_rows']} kept rows): y max|err| {err_y:.3e} "
+              f"(row rel {row_y:.3e}), states {err_s:.3e} (row rel "
+              f"{row_s:.3e}), tol {TOL['float32']}", flush=True)
+        for name, t in (("T=128", e), ("T=4", e4)):
+            print(f"    {name}: kernel {t['ms']:.4f} ms (device "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in
+                              t["device_split_ms"].items())
+                  + f"), plain {t['plain_ms']:.3f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+        del args, dec
+    return res
+
+
+def check_scan_edges(torch, gen):
+    """The ragged scan's kept rows and entry reads at zamba2's widths (N
+    64) and the reduced models' (N 16, P 32): ``out_rows`` unsorted, with
+    repeats and with block-boundary rows inside a segment, against the
+    plain version; then NaN written into every ``init_states`` row that no
+    segment start names changes no output, and ``out_rows`` entries -1
+    and T give zero rows.  Returns {case: relative error of the
+    states}."""
+    res = {}
+    for label, (H, N, P) in (("N64", (80, 64, 64)), ("N16", (8, 16, 32))):
+        args = scan_inputs(torch, H, N, P, gen, T=77,
+                           segs=MIXED_SEGS[:7] + [(70, 7, 7)])
+        x, B, C, dA, dt, starts, slots, init, _ = args
+        # unsorted, repeats, boundaries mid-segment
+        rows = torch.tensor([76, 5, 0, 0, 21, 69, 6, 37, 37, 53, 5],
+                            dtype=torch.int32, device="cuda")
+        args = (x, B, C, dA, dt, starts, slots, init, rows)
+        y, st, _, _, _, row_s = check_scan_case(torch, args,
+                                                f"edges {label}")
+        read = {int(slots[t]) for t in range(x.shape[0]) if int(starts[t])}
+        for s_ in range(init.shape[0]):
+            if s_ not in read:
+                init[s_] = float("nan")
+        from repro_torch.kernels.ssd_chunk import ragged_ssd_chunk_scan
+        y2, st2 = ragged_ssd_chunk_scan(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(y2, y) and torch.equal(st2, st)):
+            fail(f"ragged_ssd_chunk_scan edges {label}: NaN in an unread "
+                 "init_states row reached the output")
+        # entries outside [0, T) name no token: their rows are zeros
+        bad = torch.tensor([-1, x.shape[0]], dtype=torch.int32,
+                           device="cuda")
+        y3, st3 = ragged_ssd_chunk_scan(*args[:8], torch.cat([rows, bad]))
+        torch.cuda.synchronize()
+        if not (torch.equal(y3, y) and torch.equal(st3[:len(rows)], st)
+                and not bool(st3[len(rows):].abs().max() != 0)):
+            fail(f"ragged_ssd_chunk_scan edges {label}: out_rows entries "
+                 "-1 and T did not give zero rows beside the kept ones")
+        res[label] = row_s
+        print(f"  ragged_ssd_chunk_scan edges {label} (T 77, kept rows "
+              f"{rows.tolist()}): states {row_s:.3e} of a row's max|plain|;"
+              " NaN in the unread init rows held; rows -1 and T zeros",
+              flush=True)
+        del args, y, st, y2, st2, y3, st3
     return res
 
 
@@ -651,6 +876,7 @@ def counted():
                                      ssd_chunk)
     return {"ragged_paged_attention": paged_attention.ragged_paged_attention,
             "ragged_grouped_lora": ragged_lora.ragged_grouped_lora,
+            "ragged_grouped_lora_qkv": ragged_lora.ragged_grouped_lora_qkv,
             "ragged_ssd_chunk_scan": ssd_chunk.ragged_ssd_chunk_scan,
             "paged_attention": paged_attention.paged_attention,
             "ssd_chunk_scan": ssd_chunk.ssd_chunk_scan,
@@ -662,12 +888,15 @@ def reset_counts():
         fn.launches = 0
 
 
+SERVING = ("ragged_paged_attention", "ragged_grouped_lora",
+           "ragged_grouped_lora_qkv", "ragged_ssd_chunk_scan")
+
+
 def read_counts():
-    """Launches since ``reset_counts``: attention, LoRA, SSD scan."""
+    """Launches since ``reset_counts`` of the serving kernels' wrappers,
+    in ``SERVING`` order."""
     c = counted()
-    return tuple(c[k].launches for k in ("ragged_paged_attention",
-                                         "ragged_grouped_lora",
-                                         "ragged_ssd_chunk_scan"))
+    return tuple(c[k].launches for k in SERVING)
 
 
 def run_pipeline(torch, eng, adapter_names=("eval",), **kw):
@@ -712,10 +941,23 @@ def main_path(torch, arch: str, profile: bool):
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
           f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
+    # the shape of every mixed step: packed tokens, adapted tokens, active
+    # adapter slots (which B2 launches at which shapes)
+    shapes = []
+    submit = eng.runner.submit_batch
+
+    def recorded(mb):
+        shapes.append((len(mb.adapter_idx), int((mb.adapter_idx > 0).sum()),
+                       0 if mb.active_slots is None
+                       else len(mb.active_slots)))
+        return submit(mb)
+
+    eng.runner.submit_batch = recorded
     reset_counts()
     res, step_ms = run_pipeline(torch, eng, prompt_len=256, gen_len=32,
                                 eval_len=8, batch=4, seed=0)
-    n_attn, n_lora, n_scan = read_counts()
+    counts = dict(zip(SERVING, read_counts()))
+    eng.runner.submit_batch = submit
     steps = eng.runner.call_counts["mixed_step"]
     ids = res.base_ids + res.eval_ids
     outs = [eng.request(i).output_tokens for i in ids]
@@ -728,9 +970,18 @@ def main_path(torch, arch: str, profile: bool):
           f"eval n_cache_hit_tokens {hits}, state_reused {reused}, peak "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
           flush=True)
-    print(f"  launches: ragged_paged_attention {n_attn}, "
-          f"ragged_grouped_lora {n_lora}, ragged_ssd_chunk_scan {n_scan}",
+    print("  launches: " + ", ".join(f"{k} {v}" for k, v in counts.items()),
           flush=True)
+    adapted = [(T, n) for T, n, _ in shapes if n]
+    share = {"steps": len(shapes), "steps_with_adapted_tokens":
+             len(adapted), "tokens": sum(T for T, _, _ in shapes),
+             "adapted_tokens": sum(n for _, n in adapted),
+             "T_of_adapted_steps": sorted({T for T, _ in adapted}),
+             "adapted_per_adapted_step": [n for _, n in adapted]}
+    print(f"  adapted tokens: {share['adapted_tokens']} of "
+          f"{share['tokens']} in {share['steps_with_adapted_tokens']} of "
+          f"{share['steps']} steps; T of those steps "
+          f"{share['T_of_adapted_steps']}", flush=True)
     vpad = padded_vocab(cfg)
     for rid, o in zip(ids, outs):
         want = 32 if rid in res.base_ids else 8
@@ -742,11 +993,13 @@ def main_path(torch, arch: str, profile: bool):
     La = cfg.num_layers - Ls
     if Ls and not all(reused):
         fail(f"an eval request did not restore a state snapshot: {reused}")
-    want_counts = (La * steps, (3 * La + Ls) * steps, Ls * steps)
-    if (n_attn, n_lora, n_scan) != want_counts:
-        fail(f"launch counts {(n_attn, n_lora, n_scan)} != {want_counts} "
-             f"for {steps} mixed steps of {La} attention and {Ls} SSM "
-             "layers")
+    # one fused Q/K/V call per attention layer, one in-projection call
+    # per SSM layer
+    want = dict(zip(SERVING, (La * steps, Ls * steps, La * steps,
+                              Ls * steps)))
+    if counts != want:
+        fail(f"launch counts {counts} != {want} for {steps} mixed steps of "
+             f"{La} attention and {Ls} SSM layers")
     for name, mgr in (("KV blocks", eng.kv_mgr), ("state slots",
                                                   eng.st_mgr)):
         if mgr is not None and (mgr.num_free() != mgr.num_blocks
@@ -772,9 +1025,7 @@ def main_path(torch, arch: str, profile: bool):
                "tokens_emitted": emitted, "eval_cache_hits": hits,
                "eval_state_reused": reused,
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": {"ragged_paged_attention": n_attn,
-                            "ragged_grouped_lora": n_lora,
-                            "ragged_ssd_chunk_scan": n_scan},
+               "launches": counts, "adapted": share,
                "phase_ms": phase_ms}
     if arch == "granite-3.2-8b":
         # the per-step host-embedding upload the assembly mirrors from
@@ -844,8 +1095,10 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
                   if "paged_attention" in e.key) / 1e3 / n_steps
     state_bytes = 0
     if cfg.ssm is not None:
+        # the scan's kept states: 4 request rows and 1 (padded) snapshot
+        # row per SSM layer, float32
         _, nh, _ = ssm_dims(cfg)
-        state_bytes = cfg.pattern().count(SSM) * 4 * nh \
+        state_bytes = cfg.pattern().count(SSM) * (4 + 1) * nh \
             * cfg.ssm.state_dim * cfg.ssm.head_dim * 4
     per_step = lambda us: us / 1e3 / n_steps  # noqa: E731
     # kernels whose names share a prefix (template instances) are summed
@@ -885,8 +1138,6 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
            "scan_share_of_busy": scan_ms / busy_ms if busy_ms else None,
            "attention_device_ms_per_step": attn_ms,
            "attention_share_of_busy": attn_ms / busy_ms if busy_ms else None,
-           # the scan's post-token state writes: one row per running
-           # request (T = 4) per SSM layer, float32
            "scan_state_write_bytes_per_step": state_bytes,
            "host_us_per_eager_launch": launch_us,
            "top_device_ms_per_step": dict(top_dev),
@@ -1088,7 +1339,9 @@ def main() -> None:
     attn = check_attention(torch, cfgs, timer, gen)
     attn_edges = check_attention_edges(torch, cfgs, gen)
     lora = check_lora(torch, cfgs, timer, gen)
+    lora_edges = check_lora_edges(torch, cfgs, gen)
     scan = check_ssd_scan(torch, timer, gen)
+    scan_edges = check_scan_edges(torch, gen)
     edges = check_bench_edges(torch)
     del timer
     torch.cuda.empty_cache()
@@ -1110,7 +1363,11 @@ def main() -> None:
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
     a16 = attn["bfloat16"]
-    l16 = lora[f"bfloat16_out{cfg.num_heads * cfg.head_dim}"]
+    pick = lambda e, *keys: {k: e[k] for k in keys}  # noqa: E731
+    timed = ("ms", "device_split_ms", "plain_ms", "bound_ms", "bound_by",
+             "T")
+    lq, lm = lora["bfloat16_qkv"], lora[next(
+        k for k in lora if k.startswith("bfloat16_mamba2_in_proj"))]
     kernels = [
         kernel_entry(
             "ragged_paged_attention",
@@ -1141,19 +1398,30 @@ def main() -> None:
         kernel_entry(
             "ragged_grouped_lora", "src/repro_torch/csrc/ragged_lora.cu",
             "src/repro/kernels/ragged_lora.py:82",
-            g["launches"]["ragged_grouped_lora"], g["steps"], l16,
-            max_abs_err_fp32=max(v["max_abs_err"] for k, v in lora.items()
-                                 if k.startswith("float32")),
-            tol_fp32=TOL["float32"],
-            launches_mamba2=m["launches"]["ragged_grouped_lora"],
+            m["launches"]["ragged_grouped_lora"], m["steps"], lm,
+            path="mamba2-2.7b (SSM input projection)",
+            device_split_ms=lm["device_split_ms"],
+            decode4=pick(lm["decode4"], *timed, "max_abs_err",
+                         "rel_err"),
             launches_zamba2=z["launches"]["ragged_grouped_lora"],
-            ms_out1024=lora["bfloat16_out1024"]["ms"],
-            bound_ms_out1024=lora["bfloat16_out1024"]["bound_ms"],
-            plain_ms_out1024=lora["bfloat16_out1024"]["plain_ms"],
-            cases={k: {f: v[f] for f in ("d", "out", "max_abs_err",
-                                         "rel_err", "tol", "ms", "plain_ms",
-                                         "bound_ms")
-                       if f in v} for k, v in lora.items()}),
+            zamba2_in_proj={k: v for k, v in lora.items()
+                            if k.startswith("bfloat16_zamba2_in_proj")}),
+        kernel_entry(
+            "ragged_grouped_lora_qkv", "src/repro_torch/csrc/ragged_lora.cu",
+            "src/repro/kernels/ragged_lora.py:82",
+            g["launches"]["ragged_grouped_lora_qkv"], g["steps"], lq,
+            path="granite-3.2-8b (fused Q/K/V deltas)",
+            device_split_ms=lq["device_split_ms"],
+            decode4=pick(lq["decode4"], *timed, "max_abs_err",
+                         "rel_err"),
+            max_abs_err_fp32=lora["float32_qkv"]["max_abs_err"],
+            tol_fp32=TOL["float32"],
+            launches_zamba2=z["launches"]["ragged_grouped_lora_qkv"],
+            zamba2=pick(lora["bfloat16_zamba2_qkv"], "max_abs_err",
+                        "rel_err", *timed),
+            zamba2_decode4=pick(lora["bfloat16_zamba2_qkv"]["decode4"],
+                                "max_abs_err", "rel_err", *timed),
+            adapted_granite=g["adapted"], edge_rel_err=lora_edges),
         kernel_entry(
             "ragged_ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk.cu",
             "src/repro/kernels/ssd_chunk.py:178",
@@ -1161,11 +1429,17 @@ def main() -> None:
             scan["mamba2"],
             row_rel_err_y=scan["mamba2"]["row_rel_err_y"],
             row_rel_err_states=scan["mamba2"]["row_rel_err_states"],
+            kept_rows=scan["mamba2"]["kept_rows"],
+            device_split_ms=scan["mamba2"]["device_split_ms"],
+            decode4=pick(scan["mamba2"]["decode4"], *timed),
             launches_zamba2=z["launches"]["ragged_ssd_chunk_scan"],
             launches_per_step_zamba2=z["launches"]["ragged_ssd_chunk_scan"]
             / z["steps"],
             n64={k: scan["zamba2"][k] for k in
-                 ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}),
+                 ("max_abs_err", "ms", "device_split_ms", "plain_ms",
+                  "bound_ms", "bound_by")},
+            n64_decode4=pick(scan["zamba2"]["decode4"], *timed),
+            edge_rel_err=scan_edges),
         bench_entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
                     "src/repro/kernels/paged_attention.py:141", blaunch,
                     bres, edges, "granite_bf16",

@@ -34,14 +34,16 @@ SIGNATURES = {
     # part_ml, T, H, KV, hd, bs, nb, window, scale, is_bf16, stream
     "ragged_paged_attention": (P, P, P, P, P, P, P, P, P,
                                I, I, I, I, I, I, I, F, I, P),
-    # x, a_stack, b_stack, adapter_idx, active_slots, xa, out,
-    # T, d, r, out_dim, n_slots, K, is_bf16, stream
-    "ragged_grouped_lora": (P, P, P, P, P, P, P,
-                            I, I, I, I, I, I, I, P),
-    # x, B, C, dA, dt, seg_starts, slot_rows, init_states, y, states,
-    # T, H, N, P, stream
-    "ragged_ssd_chunk_scan": (P, P, P, P, P, P, P, P, P, P,
-                              I, I, I, I, P),
+    # x, (a, b, out) x 3, adapter_idx, active_slots, part, T, d, r,
+    # out_dim x 3, n_pairs, n_slots, K, split, n_split, tiles, out_tiles,
+    # tile0 x 3, is_bf16, stream
+    "ragged_grouped_lora": (P, P, P, P, P, P, P, P, P, P, P, P, P,
+                            I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                            I, P),
+    # x, B, C, dA, dt, seg_starts, slot_rows, init_states, out_rows, y,
+    # states, T, H, N, P, M, grid_h, grid_p, stream
+    "ragged_ssd_chunk_scan": (P, P, P, P, P, P, P, P, P, P, P,
+                              I, I, I, I, I, I, I, P),
     # q, k_pool, v_pool, block_tables, lengths, out, part_acc, part_ml,
     # B, H, KV, hd, bs, nb, window, scale, is_bf16, stream
     "paged_attention": (P, P, P, P, P, P, P, P,

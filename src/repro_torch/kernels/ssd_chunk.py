@@ -8,13 +8,16 @@ its plain PyTorch version beside it.  Both run the Mamba2 recurrence
 packs every scheduled token of the SSM layers (decode singletons and
 prefill chunks) along one token axis; each request's tokens form a
 contiguous segment, and at a segment start the state is gathered from
-``init_states[slot_rows[t]]``.  Both versions return the post-token
-state at every packed position; the caller gathers the segment-final
-rows for the live pool and the block-boundary rows for the prefix
-cache's snapshots.  The CUDA source (``repro_torch/csrc/ssd_chunk.cu``)
-runs the recurrent form, one block per (head, 16-column tile of P); the
-Pallas kernel's ``seg_ids`` input (needed only by its chunked form) and
-its padding of T to a chunk multiple are not needed.
+``init_states[slot_rows[t]]``.  It returns y at every position and the
+post-token state only at the positions ``out_rows`` names (the runner
+asks for each request's last token, for the live pool, and the
+block-boundary tokens, for the prefix cache's snapshots).  The CUDA
+source (``repro_torch/csrc/ssd_chunk.cu``) runs the recurrent form, one
+block per (head, 32 columns of P), a lane per (four columns, sixteenth
+of the state rows); :func:`ragged_plan` gives its launch from the shapes
+alone.
+The Pallas kernel's ``seg_ids`` input (needed only by its chunked form)
+and its padding of T to a chunk multiple are not needed.
 
 ``ssd_chunk_scan`` is the dense, batched scan over full sequences from a
 zero state; it returns every y and the final state.  Its CUDA source
@@ -28,14 +31,20 @@ only.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-_P_TILE = 16              # P columns per thread block
-_MAX_N = 256              # one thread per state row
+# the ragged scan's launch plan: the CUDA source's kBlockCols and the
+# state sizes it is built for; the source sizes each block's shared
+# memory and raises for kept rows past it
+SCAN_COLS = 32            # P columns per block
+SCAN_STATE_DIMS = (16, 32, 64, 128)   # N: a sixteenth of it per lane
+SCAN_P_STEP = 8           # P a multiple of this
 _DENSE_N_STEP = 32        # the dense scan: N a multiple of 32 ...
 _DENSE_MAX_N = 128        # ... and at most 128 (state rows in registers)
 
@@ -71,21 +80,44 @@ def ragged_ssd_scan_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return ys.to(x.dtype), states
 
 
-def _check(x, B, C, dA, dt, seg_starts, slot_rows, init_states):
+@dataclass(frozen=True)
+class ScanPlan:
+    """How the ragged scan covers a call, from the shapes alone."""
+    grid: Tuple[int, int]     # (H, P column tiles): one block each
+
+
+@functools.lru_cache(maxsize=256)
+def ragged_plan(T: int, H: int, N: int, P: int, M: int) -> ScanPlan:
+    """The launch of one call with x (T, H, P), B/C (T, H, N) and M kept
+    state rows.  Raises ``ValueError`` for a shape the kernel does not
+    take."""
+    if N not in SCAN_STATE_DIMS:
+        raise ValueError(f"state size N={N}: the kernel is built for "
+                         f"{SCAN_STATE_DIMS}")
+    if P <= 0 or P % SCAN_P_STEP or H <= 0:
+        raise ValueError(f"P={P} must be a positive multiple of "
+                         f"{SCAN_P_STEP}, H={H} positive")
+    if T < 0 or M < 0:
+        raise ValueError(f"T {T} and M {M} must not be negative")
+    return ScanPlan(grid=(H, -(-P // SCAN_COLS)))
+
+
+def _check(x, B, C, dA, dt, seg_starts, slot_rows, init_states,
+           out_rows) -> ScanPlan:
     dev = x.device
     named = (("x", x), ("B", B), ("C", C), ("dA", dA), ("dt", dt),
              ("seg_starts", seg_starts), ("slot_rows", slot_rows),
-             ("init_states", init_states))
+             ("init_states", init_states), ("out_rows", out_rows))
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in named[:5] + named[7:]:
+    for name, t in named[:5] + named[7:8]:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} dtype {t.dtype}: the kernel takes "
                             "float32")
-    for name, t in named[5:7]:
+    for name, t in named[5:7] + named[8:]:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     if x.dim() != 3 or B.dim() != 3 or init_states.dim() != 4:
@@ -96,52 +128,70 @@ def _check(x, B, C, dA, dt, seg_starts, slot_rows, init_states):
     if B.shape != (T, H, N) or C.shape != (T, H, N) \
             or dA.shape != (T, H) or dt.shape != (T, H) \
             or seg_starts.shape != (T,) or slot_rows.shape != (T,) \
-            or init_states.shape[1:] != (H, N, P):
+            or init_states.shape[1:] != (H, N, P) or out_rows.dim() != 1:
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, B {tuple(B.shape)}, C "
             f"{tuple(C.shape)}, dA {tuple(dA.shape)}, dt {tuple(dt.shape)}, "
-            f"init_states {tuple(init_states.shape)}")
-    if P % _P_TILE or N > _MAX_N:
-        raise ValueError(f"the kernel takes P a multiple of {_P_TILE} and "
-                         f"N <= {_MAX_N}, got P={P}, N={N}")
-    for name, t in (("x", x), ("init_states", init_states)):
+            f"init_states {tuple(init_states.shape)}, out_rows "
+            f"{tuple(out_rows.shape)}")
+    for name, t in named[:3] + named[7:8]:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    return ragged_plan(T, H, N, P, out_rows.shape[0])
 
 
 def ragged_ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                           dA: torch.Tensor, dt: torch.Tensor,
                           seg_starts: torch.Tensor, slot_rows: torch.Tensor,
-                          init_states: torch.Tensor
+                          init_states: torch.Tensor, out_rows: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shapes as in :func:`ragged_ssd_scan_ref`.  On a CUDA tensor the
-    kernel runs (every input float32 except ``seg_starts`` and
-    ``slot_rows``, which are int32); on a CPU tensor the plain version
-    does.  Returns (y (T, H, P), states (T, H, N, P)), float32."""
+    """Shapes as in :func:`ragged_ssd_scan_ref`, and ``out_rows`` (M,)
+    int32: packed positions in [0, T) whose post-token states to return,
+    in any order, repeats allowed (``arange(T)`` gives the reference's
+    every-position output).  On a CUDA tensor the kernel runs (every
+    input float32 except ``seg_starts``, ``slot_rows`` and ``out_rows``,
+    which are int32); on a CPU tensor the plain version does, and its
+    states are gathered at ``out_rows``.  Returns (y (T, H, P), states
+    (M, H, N, P)), float32.  An ``out_rows`` entry outside [0, T) is the
+    caller's error, not checked on the card (that would read device
+    data): the CPU path raises, the kernel writes zeros to its row."""
     if x.device.type == "cpu":
-        return ragged_ssd_scan_ref(x, B, C, dA, dt, seg_starts, slot_rows,
-                                   init_states)
+        y, states = ragged_ssd_scan_ref(x, B, C, dA, dt, seg_starts,
+                                        slot_rows, init_states)
+        return y, states.index_select(0, out_rows.long())
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(x, B, C, dA, dt, seg_starts, slot_rows, init_states)
+    out = _launch(x, B, C, dA, dt, seg_starts, slot_rows, init_states,
+                  out_rows)
+    if x.shape[0]:
+        ragged_ssd_chunk_scan.launches += 1
+    return out
+
+
+ragged_ssd_chunk_scan.launches = 0
+
+
+def _launch(x, B, C, dA, dt, seg_starts, slot_rows, init_states, out_rows
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check, plan and launch the ragged scan kernel."""
+    p = _check(x, B, C, dA, dt, seg_starts, slot_rows, init_states,
+               out_rows)
     T, H, P = x.shape
     N = B.shape[-1]
+    M = out_rows.shape[0]
     y = torch.empty((T, H, P), dtype=torch.float32, device=x.device)
-    states = torch.empty((T, H, N, P), dtype=torch.float32, device=x.device)
+    states = torch.empty((M, H, N, P), dtype=torch.float32, device=x.device)
     if T == 0:
-        return y, states
+        return y, states.zero_()
     lib = build.load()
     err = lib.ragged_ssd_chunk_scan(
         x.data_ptr(), B.data_ptr(), C.data_ptr(), dA.data_ptr(),
         dt.data_ptr(), seg_starts.data_ptr(), slot_rows.data_ptr(),
-        init_states.data_ptr(), y.data_ptr(), states.data_ptr(), T, H, N, P,
+        init_states.data_ptr(), out_rows.data_ptr(), y.data_ptr(),
+        states.data_ptr(), T, H, N, P, M, *p.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ragged_ssd_chunk_scan")
-    ragged_ssd_chunk_scan.launches += 1
     return y, states
-
-
-ragged_ssd_chunk_scan.launches = 0
 
 
 def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ragged_lora import ragged_grouped_lora
+from repro_torch.kernels.ragged_lora import (ragged_grouped_lora,
+                                             ragged_grouped_lora_qkv)
 
 Params = Dict[str, Any]
 
@@ -120,19 +121,25 @@ def qkv_project(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 active_slots: Optional[torch.Tensor] = None):
     """Project to q, k, v, adding the activation-aware low-rank update of
     each of Q/K/V when ``alora`` ({"aq","bq","ak","bk","av","bv"} with a
-    leading slot axis) is given."""
+    leading slot axis) is given: the dense delta without
+    ``active_slots``, else the three grouped deltas in one call."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if alora is not None:
         if adapter_idx is None:
             raise ValueError("alora weights given without adapter_idx")
-        q = q + lora_delta_dispatch(x, alora["aq"], alora["bq"],
-                                    adapter_idx, active_slots)
-        k = k + lora_delta_dispatch(x, alora["ak"], alora["bk"],
-                                    adapter_idx, active_slots)
-        v = v + lora_delta_dispatch(x, alora["av"], alora["bv"],
-                                    adapter_idx, active_slots)
+        pairs = [(alora["a" + n], alora["b" + n]) for n in "qkv"]
+        if active_slots is None:
+            deltas = [lora_delta(x, a, b, adapter_idx) for a, b in pairs]
+        else:
+            lead = x.shape[:-1]
+            deltas = [d.reshape(lead + (d.shape[-1],))
+                      for d in ragged_grouped_lora_qkv(
+                          x.reshape(-1, x.shape[-1]).contiguous(), *pairs,
+                          adapter_idx.reshape(-1).contiguous(),
+                          active_slots)]
+        q, k, v = q + deltas[0], k + deltas[1], v + deltas[2]
     lead = x.shape[:-1]
     q = q.reshape(lead + (cfg.num_heads, cfg.head_dim))
     k = k.reshape(lead + (cfg.num_kv_heads, cfg.head_dim))

@@ -188,14 +188,16 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     dtv = F.softplus(dtr.float() + p["dt_bias"])
     dA = dtv * (-torch.exp(p["A_log"]))                           # (T, nh)
     seg_starts = (row_cols == 0).to(torch.int32)
-    y, states = ragged_ssd_chunk_scan(xs, Bh, Ch, dA.contiguous(),
-                                      dtv.contiguous(), seg_starts,
-                                      tok_slots, live_ssm)
-    torch.index_select(states, 0, snap, out=snap_ssm_out)
+    # the kept states: each request's last token, then the boundaries
+    R = last_rows.shape[0]
+    y, kept = ragged_ssd_chunk_scan(xs, Bh, Ch, dA.contiguous(),
+                                    dtv.contiguous(), seg_starts, tok_slots,
+                                    live_ssm, torch.cat([last_rows,
+                                                         snap_rows]))
+    snap_ssm_out.copy_(kept[R:])
 
     # scatter back: every read of the old live rows is enqueued above
-    live_ssm.index_copy_(0, row_slots.long(),
-                         torch.index_select(states, 0, last))
+    live_ssm.index_copy_(0, row_slots.long(), kept[:R])
     live_conv.index_copy_(0, row_slots.long(), new_rows)
 
     y = y.float() + p["D"][:, None] * xs

@@ -112,20 +112,63 @@ def test_grouped_lora_matches_pallas_and_ref(T, out, active, dtype):
     assert dead.any() and not got[torch.from_numpy(dead)].any()
 
 
+@pytest.mark.parametrize("r", [8, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_lora_qkv_matches_pallas_and_ref(r, dtype):
+    """The fused Q/K/V entry: each of its three deltas against the
+    reference's Pallas kernel (interpret mode) and jnp ref on that pair,
+    with rows of two active slots interleaved, rows on slot 0 and on the
+    resident-but-inactive slot 3 (exact zeros), and slot 0's weights
+    nonzero (it must add nothing)."""
+    T, d, n = 21, 32, 4
+    rng = np.random.RandomState(r)
+    x = rng.randn(T, d).astype(np.float32)
+    idx = np.array([1, 2, 0, 3, 2, 1, 1] * 3, np.int32)
+    act = np.array([1, 2, 0, 0], np.int32)
+    stacks = [(rng.randn(n, d, r).astype(np.float32),
+               rng.randn(n, r, out).astype(np.float32))
+              for out in (48, 16, 16)]
+    jx, tx = _pair(x, dtype)
+    pairs = [tuple(_pair(w, dtype) for w in ab) for ab in stacks]
+    got = rl.ragged_grouped_lora_qkv(tx, *((ta, tb) for (_, ta), (_, tb)
+                                           in pairs),
+                                     torch.from_numpy(idx),
+                                     torch.from_numpy(act))
+    assert len(got) == 3
+    dead = torch.from_numpy(~np.isin(idx, [1, 2]))
+    for g, ((ja, _), (jb, _)), (_, b) in zip(got, pairs, stacks):
+        assert g.dtype == tx.dtype and g.shape == (T, b.shape[-1])
+        want_kernel = ragged_lora_op(jx, ja, jb, jnp.asarray(idx),
+                                     jnp.asarray(act), interpret=True)
+        want_ref = jax_lora_ref(jx, ja, jb, jnp.asarray(idx),
+                                jnp.asarray(act))
+        _close(g, want_kernel, dtype)
+        _close(g, want_ref, dtype)
+        assert not g[dead].any()
+
+
 def test_wrappers_launch_nothing_on_cpu_tensors():
     pa.ragged_paged_attention.launches = 0
     rl.ragged_grouped_lora.launches = 0
+    rl.ragged_grouped_lora_qkv.launches = 0
     a = _attention_inputs(4, seed=0)
     pa.ragged_paged_attention(*(torch.from_numpy(a[n]) for n in
                                 ("q", "k", "v", "bt", "rows", "lens")))
     i = _lora_inputs(8, 24, [1, 2], seed=0)
     rl.ragged_grouped_lora(*(torch.from_numpy(i[n]) for n in
                              ("x", "a", "b", "idx", "act")))
+    ab = (torch.from_numpy(i["a"]), torch.from_numpy(i["b"]))
+    rl.ragged_grouped_lora_qkv(torch.from_numpy(i["x"]), ab, ab, ab,
+                               torch.from_numpy(i["idx"]),
+                               torch.from_numpy(i["act"]))
     assert pa.ragged_paged_attention.launches == 0
     assert rl.ragged_grouped_lora.launches == 0
+    assert rl.ragged_grouped_lora_qkv.launches == 0
 
 
 def test_wrappers_reject_other_devices():
     x = torch.zeros((2, 4), device="meta")
     with pytest.raises(ValueError, match="device"):
         rl.ragged_grouped_lora(x, x, x, x, x)
+    with pytest.raises(ValueError, match="device"):
+        rl.ragged_grouped_lora_qkv(x, (x, x), (x, x), (x, x), x, x)

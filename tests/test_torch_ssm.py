@@ -71,13 +71,20 @@ LENS = [[1, 1, 1, 1],                  # decode-only
         [1, 40, 1, 50, 1]]             # singletons between long segments
 
 
-@pytest.mark.parametrize("lens", LENS)
-def test_scan_ref_matches_reference_oracle_and_pallas(lens):
-    a = _scan_inputs(lens, H=3, P=16, N=8, S=5, seed=sum(lens))
-    ty, ts = ssd_chunk.ragged_ssd_chunk_scan(
+def _torch_scan(a, out_rows):
+    return ssd_chunk.ragged_ssd_chunk_scan(
         *(torch.from_numpy(a[k]) for k in ("x", "B", "C", "dA", "dt")),
         torch.from_numpy(a["starts"].astype(np.int32)),
-        torch.from_numpy(a["slots"]), torch.from_numpy(a["init"]))
+        torch.from_numpy(a["slots"]), torch.from_numpy(a["init"]),
+        torch.from_numpy(np.asarray(out_rows, np.int32)))
+
+
+@pytest.mark.parametrize("lens", LENS)
+def test_scan_ref_matches_reference_oracle_and_pallas(lens):
+    """Every position kept (``out_rows = arange(T)``): the reference's
+    every-position output."""
+    a = _scan_inputs(lens, H=3, P=16, N=8, S=5, seed=sum(lens))
+    ty, ts = _torch_scan(a, np.arange(sum(lens)))
     jargs = [jnp.asarray(a[k]) for k in ("x", "B", "C", "dA", "dt")]
     jy, js = jax_scan_ref(*jargs, jnp.asarray(a["starts"]),
                           jnp.asarray(a["slots"]), jnp.asarray(a["init"]))
@@ -94,10 +101,41 @@ def test_scan_ref_matches_reference_oracle_and_pallas(lens):
     assert ssd_chunk.ragged_ssd_chunk_scan.launches == 0
 
 
+@pytest.mark.parametrize("lens", LENS)
+def test_scan_keeps_the_named_rows(lens):
+    """``out_rows`` as the runner builds it and beyond: unsorted, with
+    repeats (padded request rows all name row 0), segment ends and
+    block-boundary rows inside a segment.  The kept states are the
+    reference's at those positions (oracle 1e-5, Pallas interpret 1e-4),
+    and y is unchanged."""
+    a = _scan_inputs(lens, H=3, P=16, N=8, S=5, seed=sum(lens) + 1)
+    T = sum(lens)
+    ends = np.cumsum(lens) - 1
+    mids = [t for t in range(T) if t % 16 == 15 and t not in ends]
+    out_rows = np.concatenate([ends[::-1], [0, 0], mids, [ends[0]]]
+                              ).astype(np.int64)
+    ty, ts = _torch_scan(a, out_rows)
+    assert ts.shape == (len(out_rows), 3, 8, 16)
+    jargs = [jnp.asarray(a[k]) for k in ("x", "B", "C", "dA", "dt")]
+    jy, js = jax_scan_ref(*jargs, jnp.asarray(a["starts"]),
+                          jnp.asarray(a["slots"]), jnp.asarray(a["init"]))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js)[out_rows],
+                               rtol=1e-5, atol=1e-5)
+    _, ps = ragged_ssd_scan_op(*jargs, jnp.asarray(a["seg_ids"]),
+                               jnp.asarray(a["starts"]),
+                               jnp.asarray(a["slots"]),
+                               jnp.asarray(a["init"]), interpret=True)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ps)[out_rows],
+                               rtol=1e-4, atol=1e-4)
+    assert ssd_chunk.ragged_ssd_chunk_scan.launches == 0
+
+
 def test_scan_wrapper_rejects_other_devices():
     t = torch.zeros((1, 1, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        ssd_chunk.ragged_ssd_chunk_scan(t, t, t, t, t, t, t, t)
+        ssd_chunk.ragged_ssd_chunk_scan(t, t, t, t, t, t, t, t, t)
 
 
 # ---------------------------------------------------------------------------
