@@ -37,10 +37,12 @@ Phases, each of which exits non-zero on failure:
    in each type they take: decode paged attention (lengths ending inside
    a block, with and without a 7-token window, and lengths around a
    split boundary, with and without a 24-token window), the fused aLoRA
-   QKV projection (T, d and the output width off its tiles; a nonzero
-   adapter in slot 0 and indices -1 and n, all of which must add no
-   delta) and the dense SSD chunk scan (S and P off its chunk and column
-   slice);
+   QKV projection (T 1, 100, 130 and 300 across both branches of its
+   plan, d 264 and outputs 200 and 6144 off its tiles, ranks 8 and 32;
+   NaN in slot 0 and in an adapter no row is on, and the indices -1 and
+   n, all of which must change no output) and the dense SSD chunk scan
+   (S 70 and 130 off its chunks, P 40 off its column slices, N 32, 64
+   and 128, with Bt * H below and above the 132 SMs);
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
@@ -54,7 +56,10 @@ Phases, each of which exits non-zero on failure:
    zamba2 with two adapters cycling through one device slot, the same
    weights and the same pipeline on the card and on the CPU — identical
    tokens, prefix-cache hits (KV blocks and state snapshots),
-   ``state_reused`` and adapter evictions;
+   ``state_reused`` and adapter evictions; then a reduced granite engine
+   on the card asked for adapter slot rank 48 holds the LoRA kernel's
+   bucket 64 and serves to the end, and one given a rank-300 adapter
+   raises at construction;
 5. the kernel-bench entry point (``repro_torch.kernels.bench``) at full
    width, with every kernel count set to 0 just before and read just
    after: decode attention (granite's GQA, contexts 256–4096, bf16, and
@@ -63,7 +68,8 @@ Phases, each of which exits non-zero on failure:
    512, float32 at 128) and the dense SSD chunk scan (float32, two rows
    of 2048 tokens, H 80, P 64, N = 128 and 64) must each launch, and each
    must stay within tolerance of its plain version; the bench times each
-   against its plain version, its bound and its yardstick.  Then a NaN
+   against its plain version, its bound and its yardstick (by events and
+   by the profiler's device time).  Then a NaN
    written into the block past every length must leave decode
    attention's output unchanged at the bench's full-width cases.
 
@@ -806,19 +812,39 @@ def check_scan_edges(torch, gen):
     return res
 
 
+def alora_edge_args(torch, gen, dtype, T, d, out, r):
+    """The fused projection with five stacked adapters at an edge shape:
+    rows on adapters 0..3 and on the indices -1 and 5, none on adapter 4.
+    Returns (args, the same with NaN in A[0], B[0], A[4] and B[4])."""
+    from repro_torch.kernels import bench
+    case = bench.alora_case(gen, "cuda", dtype, T=T, d=d, out=out, n=5, r=r,
+                            name="edge", edge=True)
+    x, w, a, b, idx = case.args
+    idx = torch.where(idx == 4, torch.ones_like(idx), idx).contiguous()
+    an, bn = a.clone(), b.clone()
+    for i in (0, 4):
+        an[i] = float("nan")
+        bn[i] = float("nan")
+    return (x, w, a, b, idx), (x, w, an, bn, idx)
+
+
 def check_bench_edges(torch):
     """Decode attention, the fused aLoRA QKV projection and the dense SSD
     scan against their plain versions at small shapes that reach every
     masked edge, in float32 and bf16 (the scan float32 only): lengths 5,
     17 and 40 over 16-token blocks, with no window and a 7-token one, and
     lengths 255, 256, 257 and 560 around the kernel's 256-token split
-    boundary, with no window and a 24-token one; T
-    100, d 264 and out 200 against 64 x 128 (bf16) and 64 x 64 (float32)
-    tiles and 32- or 16-wide steps of d, rank 8 padded to 32, a nonzero
-    adapter in slot 0 and indices -1 and n; S 70 and P 40 against 32-token
-    chunks and 32-column slices, N 64 and 128.  Within TOL of max |plain|,
-    of each row for attention.  Returns {case: relative error}."""
-    from repro_torch.kernels import bench
+    boundary, with no window and a 24-token one; the projection at T 1,
+    100, 130 and 300 (64- and 128-row tiles, d split at T <= 128 and
+    whole-d tiles above), d 264 (off the 32/64-column k steps), out 200
+    and 6144 (off the 128/192-column tiles), ranks 8 and 32, with NaN in
+    A[0], B[0] and an adapter no row is on, and rows on the indices -1 and
+    n: the NaN must change no output; the scan at S 70 and 130 (off its
+    32- and 64-token chunks), P 40 (off its 16-column warp slices), N 32,
+    64 and 128, with Bt * H = 6 (P cut into slices) and 140 (whole-P
+    blocks).  Within TOL of max |plain|, of each row for attention.
+    Returns {case: relative error}."""
+    from repro_torch.kernels import alora_qkv, bench, ssd_chunk
     gen = torch.Generator(device="cuda").manual_seed(1)
     builders = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -838,13 +864,6 @@ def check_bench_edges(torch):
                                 hd=128, bs=16, lengths=[255, 256, 257, 560],
                                 nb=48, window=window,
                                 name=f"split_window{window}"))
-        builders.append(lambda dtype=dtype: bench.alora_case(
-            gen, "cuda", dtype, T=100, d=264, out=200, n=4, r=8,
-            name="edge", edge=True))
-    for N in (64, 128):
-        builders.append(lambda N=N: bench.ssd_case(
-            gen, "cuda", Bt=2, S=70, H=3, P=40, N=N, name=f"edge_N{N}",
-            plain_iters=1))
     res = {}
     for make in builders:
         case = make()
@@ -864,7 +883,90 @@ def check_bench_edges(torch):
         print(f"  {key}: {rel:.3e} of max|plain|"
               f"{' per row' if case.per_row else ''} (tol {tol})",
               flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        dtype_name = str(dtype).replace("torch.", "")
+        tol = TOL[dtype_name]
+        for T in (1, 100, 130, 300):
+            for out in (200, 6144):
+                for r in (8, 32):
+                    args, nan_args = alora_edge_args(torch, gen, dtype, T,
+                                                     264, out, r)
+                    got = alora_qkv.alora_qkv(*args)
+                    again = alora_qkv.alora_qkv(*nan_args)
+                    want = alora_qkv.alora_qkv_ref(*args)
+                    torch.cuda.synchronize()
+                    key = f"alora_qkv/edge_T{T}_out{out}_r{r}_{dtype_name}"
+                    if not torch.equal(got, again):
+                        fail(f"{key}: NaN in A[0], B[0] or an adapter no "
+                             "row is on reached the output")
+                    rel = rel_err(got, want)[1]
+                    if rel > tol:
+                        fail(f"{key}: {rel} of max|plain| > {tol}")
+                    res[key] = rel
+                    p = alora_qkv.plan(T, 264, out, r, 5, dtype)
+                    print(f"  {key}: {rel:.3e} of max|plain| (tol {tol}); "
+                          f"tiles {p.bm} x {p.bn}, grid {p.grid}; NaN "
+                          "held", flush=True)
+    for N in (32, 64, 128):
+        for S in (70, 130):
+            for H in (3, 70):
+                case = bench.ssd_case(gen, "cuda", Bt=2, S=S, H=H, P=40, N=N,
+                                      name="edge", plain_iters=1)
+                got = ssd_chunk.ssd_chunk_scan(*case.args)
+                want = ssd_chunk.ssd_chunk_ref(*case.args)
+                torch.cuda.synchronize()
+                key = f"ssd_chunk_scan/edge_S{S}_H{H}_N{N}_float32"
+                rel = max(rel_err(g, w)[1] for g, w in zip(got, want))
+                if rel > TOL["float32"]:
+                    fail(f"{key}: {rel} of max|plain| > {TOL['float32']}")
+                res[key] = rel
+                p = ssd_chunk.dense_plan(2, S, H, N, 40)
+                print(f"  {key}: {rel:.3e} of max|plain| (tol "
+                      f"{TOL['float32']}); chunk {p.chunk}, {p.cols} "
+                      f"columns a block, grid {p.grid}, {p.stages} stages",
+                      flush=True)
     return res
+
+
+def slot_rank_card(torch):
+    """The adapter pool's slot rank on the card: a reduced granite engine
+    asked for slot rank 48 holds the LoRA kernel's bucket 64 and serves
+    the base -> aLoRA pipeline to the end; an engine given a rank-300
+    adapter raises at construction (the kernel takes ranks up to 256)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.alora import AdapterSpec, init_adapter_weights
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Engine, EngineConfig
+
+    cfg = get_reduced("granite-3.2-8b")
+    gen = torch.Generator().manual_seed(2)
+    params = init_params(gen, cfg, device="cpu")
+    w = init_adapter_weights(gen, cfg, 32, device="cpu")
+    eng = Engine(cfg, params, device="cuda",
+                 adapters=[(AdapterSpec("eval", 32, INV), w)],
+                 engine_cfg=EngineConfig(adapter_slot_rank=48))
+    if eng.adapter_pool.slot_rank != 64:
+        fail(f"slot rank 48 on the card gave {eng.adapter_pool.slot_rank}, "
+             "not the bucket 64")
+    res, _ = run_pipeline(torch, eng, prompt_len=40, gen_len=12, eval_len=6,
+                          batch=3, seed=3)
+    lens = [len(eng.request(i).output_tokens) for i in res.base_ids] + \
+        [len(eng.request(i).output_tokens) for i in res.eval_ids]
+    if lens != [12] * len(res.base_ids) + [6] * len(res.eval_ids):
+        fail(f"the slot-rank-64 engine did not serve to the end: {lens}")
+    big = init_adapter_weights(gen, cfg, 300, device="cpu")
+    try:
+        Engine(cfg, params, device="cuda",
+               adapters=[(AdapterSpec("big", 300, INV), big)])
+    except ValueError as e:
+        raised = str(e)
+    else:
+        fail("an engine with a rank-300 adapter was built on the card")
+    print(f"  slot rank 48 -> {eng.adapter_pool.slot_rank}: "
+          f"{len(lens)} requests served; rank 300 raises: {raised}",
+          flush=True)
+    return {"asked": 48, "slot_rank": eng.adapter_pool.slot_rank,
+            "requests": len(lens), "rank_300": raised}
 
 
 # ---------------------------------------------------------------------------
@@ -1281,7 +1383,8 @@ def bench_entry(name, source, replaces, launches, bres, edges, case,
         out = {"case": c, "shape": r["shape"], "dtype": r["dtype"]}
         for k in ("max_abs_err", "rel_err", "row_rel_err", "tol", "ms",
                   "plain_ms", "bound_ms", "bound_by", "library_ms",
-                  "base_gemm_ms", "device_split_ms"):
+                  "library_device_ms", "base_gemm_ms", "base_gemm_device_ms",
+                  "device_split_ms", "device_span_ms"):
             if k in r:
                 out[k] = r[k]
         out.setdefault("library_ms", None)
@@ -1356,6 +1459,7 @@ def main() -> None:
     print("[4] parity, reduced fp32, card vs CPU", flush=True)
     par = {arch: parity(torch, arch)
            for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b")}
+    par["slot_rank"] = slot_rank_card(torch)
 
     print("[5] kernel bench entry point, full width", flush=True)
     bres, blaunch, bsec = bench_path(torch)

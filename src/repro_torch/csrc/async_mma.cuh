@@ -1,5 +1,7 @@
-// Hopper primitives of the grouped-LoRA and ragged-SSD kernels:
-// cp.async copies into shared memory, ldmatrix, and mma.sync on bf16.
+// Hopper primitives of the port's kernels: cp.async copies into shared
+// memory, ldmatrix, mma.sync on bf16 and on TF32 (with the 3xTF32 split
+// that keeps float32 accuracy), and the TMA / mbarrier / wgmma pieces of
+// the fused aLoRA projection.
 #pragma once
 
 #include <stdint.h>
@@ -55,6 +57,153 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------------------------ TF32 x 3
+// A float32 v is split into hi, v with its low 13 mantissa bits cleared
+// (a TF32 value), and lo = v - hi (exact); the tensor cores read a TF32
+// operand from the top 19 bits of its register, so lo enters truncated
+// (|lo| < 2^-10 |v|, its own error < 2^-10 |lo|).  The product of two
+// such values is hi*hi + hi*lo + lo*hi (lo*lo is below 2^-20 of it), so
+// three TF32 mma.sync keep float32 accuracy to about 2^-20.  The split
+// is a mask and a subtraction: no conversion instruction.
+struct Tf32 {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Tf32 split_tf32(float v) {
+  const uint32_t hi = __float_as_uint(v) & 0xffffe000u;
+  return {hi, __float_as_uint(v - __uint_as_float(hi))};
+}
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), fp32 accumulate.  The
+// m16n8k8 fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); b0 (k t, n g), b1 (k t + 4, n g); d as mma_bf16's (g = lane / 4,
+// t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// d += a * b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Tf32 (&a)[4],
+                                           Tf32 b0, Tf32 b1) {
+  mma_tf32(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
+}
+
+// the same with the two correction terms in their own accumulator, so a
+// chain of k steps on one output is two shorter chains (sum d and dc
+// at the end)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], float (&dc)[4],
+                                           const Tf32 (&a)[4], Tf32 b0,
+                                           Tf32 b1) {
+  mma_tf32(dc, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+  mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
+  mma_tf32(dc, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+}
+
+// ------------------------------------------------- mbarrier and TMA
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// makes the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// arrive, and expect `bytes` more from the copies that complete on it
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// TMA tile loads, global (through a tensor map) -> shared; the bytes
+// complete on `bar`.  Coordinates innermost first, in elements.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// --------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor of a tile in the 128-byte swizzle (the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): start address, the
+// leading and stride byte offsets, layout type 1 (B128).  The tile starts
+// on a 1024-byte boundary (base offset 0).
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// orders the accumulator registers' reads and writes against the
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// programmatic dependent launch: let the stream's next kernel (launched
+// with the programmatic-serialization attribute) start launching; wait
+// until the kernels this one depends on have completed and their writes
+// are visible
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {

@@ -12,12 +12,15 @@ prints the kernel's time (CUDA events, the L2 cache flushed before each
 launch), the plain version's time, the kernel's error against the plain
 version, and the least time the card could take for the same work (the
 larger of the unique bytes over 3.35 TB/s and the operations over the
-type's peak rate; NVIDIA H100 SXM data sheet).  For the projection it
-also times the base product alone with ``torch.matmul``; for decode
+type's peak rate: 989 TFLOP/s bf16, 165 float32 as three TF32
+products; NVIDIA H100 SXM data sheet).  For the projection it also
+times the base product alone with ``torch.matmul``; for decode
 attention, ``scaled_dot_product_attention`` on K/V gathered beforehand
-(yardsticks: the port calls neither); and each case's device time per
-launch of each CUDA kernel (``torch.profiler``), which splits the fused
-projection into its shrink and its tile kernel.
+(yardsticks: the port calls neither), each by events and by the
+profiler's device time; and each case's device time per launch of each
+CUDA kernel (``torch.profiler``), which splits the fused projection into
+its shrink, the pass over its splits, its tile kernel and the sum of
+the tile's d splits.
 
 With ``--device cpu --reduced`` it runs only the plain versions, at
 small shapes, and prints one row per kernel.  Rows are CSV,
@@ -42,7 +45,14 @@ from repro_torch.kernels.paged_attention import (paged_attention,
 from repro_torch.kernels.ssd_chunk import ssd_chunk_ref, ssd_chunk_scan
 
 HBM_BYTES_PER_S = 3.35e12                            # H100 SXM HBM3
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
+BF16_PEAK = 989e12            # dense bf16 on the tensor cores
+# float32: the port's float32 kernels run on the tensor cores as three
+# TF32 products each (3xTF32: hi*hi + hi*lo + lo*hi), so their peak is
+# the 495 TFLOP/s of TF32 over three; the 67 TFLOP/s of the CUDA cores
+# would let a tensor-core kernel read over 100 % of its bound
+FP32_TENSOR_PEAK = 495e12 / 3
+FP32_CUDA_CORE_PEAK = 67e12   # not a bound: kept for comparison
+PEAK_OPS = {torch.bfloat16: BF16_PEAK, torch.float32: FP32_TENSOR_PEAK}
 
 
 def emit(name: str, us_per_call: float, derived: str = "") -> None:
@@ -306,28 +316,76 @@ def outputs(result) -> tuple:
     return result if isinstance(result, tuple) else (result,)
 
 
-def device_split(case, kernel, timer, n: int = 10) -> Dict[str, float]:
-    """Device ms per launch of each CUDA kernel of the port that a call
-    of ``kernel`` launches (each once per call), by ``torch.profiler``
-    over ``n`` calls with the L2 cache flushed before each (the flush's
-    own kernel not counted).  Averaged over the launches the profiler
-    recorded: a second profiling session in one process may miss some."""
+def _profiled(call, timer, n: int = 10):
+    """``torch.profiler`` over ``n`` calls of ``call``, the L2 cache
+    flushed before each (by ``timer.flush``)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             timer.flush.zero_()
-            kernel(*case.args, **case.kwargs)
+            call()
         torch.cuda.synchronize()
+    return prof
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0) or 0
+
+
+def device_split(case, kernel, timer, n: int = 10) -> Dict[str, float]:
+    """Device ms per launch of each CUDA kernel of the port that a call
+    of ``kernel`` launches (each once per call), over ``n`` calls with
+    the L2 cache flushed before each (the flush's own kernel not
+    counted).  Averaged over the launches the profiler recorded: a
+    second profiling session in one process may miss some."""
+    prof = _profiled(lambda: kernel(*case.args, **case.kwargs), timer, n)
     split = {}
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0) or 0
+        us = _device_us(e)
         m = re.search(r"repro_torch::(?:\(anonymous namespace\)::)?(\w+)",
                       e.key)
         if m and us > 0:
             total, count = split.get(m.group(1), (0.0, 0))
             split[m.group(1)] = (total + us / 1e3, count + e.count)
     return {name: total / count for name, (total, count) in split.items()}
+
+
+def device_span(case, kernel, timer, n: int = 10) -> Optional[float]:
+    """Device ms from the first kernel of a call of ``kernel`` to the end
+    of its last, over ``n`` calls with the L2 cache flushed before each
+    (the flush's kernel starts each call's group); the call's kernels may
+    overlap (programmatic dependent launch), so their device times do not
+    add up to it.  None when the profiler gives no kernel times."""
+    from torch.autograd import DeviceType
+    prof = _profiled(lambda: kernel(*case.args, **case.kwargs), timer, n)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and e.time_range.end > e.time_range.start),
+                    key=lambda e: e.time_range.start)
+    spans, group = [], None
+    for e in events:
+        if "repro_torch" not in e.name:     # the flush: a new call
+            if group:
+                spans.append(group[1] - group[0])
+            group = None
+            continue
+        group = (e.time_range.start, e.time_range.end) if group is None \
+            else (group[0], max(group[1], e.time_range.end))
+    if group:
+        spans.append(group[1] - group[0])
+    return statistics.mean(spans) / 1e3 if spans else None
+
+
+def call_device_ms(call, timer, n: int = 10) -> float:
+    """Device ms of one ``call`` (every kernel it launches, summed), over
+    ``n`` calls with the L2 cache flushed before each; the flush's own
+    kernel is not counted (it is profiled alone first, by name)."""
+    flush = {e.key for e in _profiled(lambda: None, timer, 1).key_averages()
+             if _device_us(e) > 0}
+    prof = _profiled(call, timer, n)
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.key not in flush) / 1e3 / n
 
 
 def run(device: str = "cuda", reduced: bool = False) -> Dict[str, dict]:
@@ -370,13 +428,22 @@ def run(device: str = "cuda", reduced: bool = False) -> Dict[str, dict]:
                  f"{err} bound_us={bnd * 1e3:.1f}({by}) {case.shape}")
             if case.yardstick is not None:
                 field, make = case.yardstick
-                res[field] = timer(make())
+                call = make()
+                res[field] = timer(call)
+                res[field[:-3] + "_device_ms"] = call_device_ms(call, timer)
                 emit(f"kernels/{key}/{field[:-3]}-{device}",
                      res[field] * 1e3, "yardstick: one PyTorch call")
+                emit(f"kernels/{key}/{field[:-3]}-device",
+                     res[field[:-3] + "_device_ms"] * 1e3,
+                     "yardstick, torch.profiler device time")
             res["device_split_ms"] = device_split(case, kernel, timer)
             for name, ms in res["device_split_ms"].items():
                 emit(f"kernels/{key}/device-{name}", ms * 1e3,
                      "torch.profiler, per launch")
+            res["device_span_ms"] = device_span(case, kernel, timer)
+            if res["device_span_ms"] is not None:
+                emit(f"kernels/{key}/device-span", res["device_span_ms"] * 1e3,
+                     "torch.profiler, first kernel start to last kernel end")
             del got
         results[key] = res
         del want

@@ -48,11 +48,14 @@ SIGNATURES = {
     # B, H, KV, hd, bs, nb, window, scale, is_bf16, stream
     "paged_attention": (P, P, P, P, P, P, P, P,
                         I, I, I, I, I, I, I, F, I, P),
-    # x, B, C, dA, dt, y, state, Bt, S, H, N, P, stream
-    "ssd_chunk_scan": (P, P, P, P, P, P, P, I, I, I, I, I, P),
-    # x, w, a_stack, b_stack, adapter_idx, xa, out,
-    # T, d, out_dim, n, r, rp, is_bf16, stream
-    "alora_qkv": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # x, B, C, dA, dt, y, state, Bt, S, H, N, P, chunk, cols, slices,
+    # stages, stream
+    "ssd_chunk_scan": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    # x, w, a_stack, b_stack, adapter_idx, xa_part, xa, tile_part, out, T,
+    # d, out_dim, n, r, rp, bm, bn, stages, split, ksteps, xa_split, xa_kc,
+    # xa_blocks, reduce_blocks, is_bf16, stream
+    "alora_qkv": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                  I, I, I, I, I, I, P),
 }
 
 _lib: Optional[ctypes.CDLL] = None     # the process's loaded library

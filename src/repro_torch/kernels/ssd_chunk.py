@@ -21,8 +21,9 @@ and its padding of T to a chunk multiple are not needed.
 
 ``ssd_chunk_scan`` is the dense, batched scan over full sequences from a
 zero state; it returns every y and the final state.  Its CUDA source
-(``repro_torch/csrc/ssd_chunk_dense.cu``) runs the chunked SSD form and
-needs no padding of S either.
+(``repro_torch/csrc/ssd_chunk_dense.cu``) runs the chunked SSD form on
+tensor cores in 3xTF32, one block per (head, slice of P, row), and
+needs no padding of S either; :func:`dense_plan` gives its launch.
 
 Each wrapper sends a CUDA tensor to its kernel and a CPU tensor to its
 plain version (:func:`ssd_chunk_ref`, :func:`ragged_ssd_scan_ref`), and
@@ -45,8 +46,16 @@ from repro_torch.kernels import build
 SCAN_COLS = 32            # P columns per block
 SCAN_STATE_DIMS = (16, 32, 64, 128)   # N: a sixteenth of it per lane
 SCAN_P_STEP = 8           # P a multiple of this
-_DENSE_N_STEP = 32        # the dense scan: N a multiple of 32 ...
-_DENSE_MAX_N = 128        # ... and at most 128 (state rows in registers)
+# the dense scan's launch plan: the CUDA source's kWarpCols and
+# kMaxWarps, the state sizes and the chunk length it is built for
+DENSE_N = (32, 64, 96, 128)       # N: the state's columns in registers
+DENSE_CHUNK = 32                  # Q, tokens per chunk
+DENSE_TILES = 6                   # C . B^T's lower-triangle 16 x 8 tiles
+DENSE_WARP_COLS = 16              # columns of P per warp
+DENSE_MAX_COLS = 64               # columns of P per block, at most
+DENSE_STAGES = (2, 3, 4)          # chunks in the cp.async ring
+DENSE_SMEM_TARGET = 110 * 1024    # two blocks share an SM's 228 KB
+SMS = 132                         # H100 SXM
 
 
 def ragged_ssd_scan_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -194,6 +203,60 @@ def _launch(x, B, C, dA, dt, seg_starts, slot_rows, init_states, out_rows
     return y, states
 
 
+@dataclass(frozen=True)
+class DensePlan:
+    """How the dense scan covers a call, from the shapes alone; the
+    launch takes every field."""
+    chunk: int                # Q, tokens per chunk
+    cols: int                 # columns of P per block (16 per warp)
+    grid: Tuple[int, int, int]  # (H, P slices, Bt): one block each
+    stages: int               # chunks in the cp.async ring
+    smem: int                 # dynamic shared memory per block, bytes
+
+
+def dense_smem(N: int, cols: int, stages: int) -> int:
+    """The block's shared memory, as the CUDA source lays it out: per
+    stage C and B (Q x (N + 8)), x (Q x (cols + 8)), dA and dt; then W
+    (Q x (Q + 4)), per warp its cumulative sums (Q) and its C . B^T
+    partials (the tiles' 128 values each), and the rows' two factors."""
+    Q = DENSE_CHUNK
+    stage = Q * (2 * (N + 8) + cols + 8) + 2 * Q
+    return 4 * (stages * stage + Q * (Q + 4)
+                + (cols // DENSE_WARP_COLS) * (Q + DENSE_TILES * 128)
+                + 2 * Q)
+
+
+@functools.lru_cache(maxsize=256)
+def dense_plan(Bt: int, S: int, H: int, N: int, P: int) -> DensePlan:
+    """The launch of one call with x (Bt, S, H, P) and B/C (Bt, S, H, N).
+
+    A block walks one (row, head) over every chunk, for a slice of at
+    most 64 columns of P (one warp per 16).  P is cut into more slices
+    than that only while Bt * H blocks would leave SMs idle (each slice
+    computes the chunk's C . B^T again).  Chunks of 32 tokens, and as
+    many stages (at least 2) as keep a block within ~110 KB of shared
+    memory: two blocks per SM.
+    Raises ``ValueError`` for a shape the kernel does not take."""
+    if N not in DENSE_N:
+        raise ValueError(f"state size N={N}: the kernel is built for "
+                         f"{DENSE_N}")
+    if P <= 0 or P % SCAN_P_STEP:
+        raise ValueError(f"P={P} must be a positive multiple of "
+                         f"{SCAN_P_STEP}")
+    if Bt <= 0 or H <= 0 or S < 0:
+        raise ValueError(f"Bt {Bt} and H {H} must be positive, S {S} not "
+                         "negative")
+    step = DENSE_WARP_COLS
+    fewest = -(-P // DENSE_MAX_COLS)
+    slices = max(fewest, min(-(-P // step), SMS // (Bt * H)))
+    cols = -(-(-(-P // slices)) // step) * step
+    slices = -(-P // cols)
+    stages = max(st for st in DENSE_STAGES if st == DENSE_STAGES[0]
+                 or dense_smem(N, cols, st) <= DENSE_SMEM_TARGET)
+    return DensePlan(chunk=DENSE_CHUNK, cols=cols, grid=(H, slices, Bt),
+                     stages=stages, smem=dense_smem(N, cols, stages))
+
+
 def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                   dA: torch.Tensor, dt: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -223,13 +286,20 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     """The dense scan; shapes as in :func:`ssd_chunk_ref`, any S.  The
     reference kernel's ``chunk`` argument is not taken: its result
     depends on the chunk length only through rounding, and the CUDA
-    kernel tiles by its own 32-token chunk.  On a CUDA tensor the kernel
-    runs (float32 only; N a multiple of 32, at most 128); on a CPU tensor
-    the plain version does."""
+    kernel tiles by :func:`dense_plan`'s.  On a CUDA tensor the kernel
+    runs (float32 only; N in ``DENSE_N``, P a multiple of 8); on a CPU
+    tensor the plain version does."""
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, B, C, dA, dt)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    y, state = _launch_dense(x, B, C, dA, dt)
+    if y.numel():
+        ssd_chunk_scan.launches += 1
+    return y, state
+
+
+def _check_dense(x, B, C, dA, dt) -> DensePlan:
     named = (("x", x), ("B", B), ("C", C), ("dA", dA), ("dt", dt))
     for name, t in named:
         if t.device != x.device:
@@ -248,12 +318,17 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, B {tuple(B.shape)}, C "
             f"{tuple(C.shape)}, dA {tuple(dA.shape)}, dt {tuple(dt.shape)}")
-    if N % _DENSE_N_STEP or not 0 < N <= _DENSE_MAX_N:
-        raise ValueError(f"the kernel takes N a multiple of {_DENSE_N_STEP}, "
-                         f"at most {_DENSE_MAX_N}, got N={N}")
-    for name, t in (("B", B), ("C", C)):
+    for name, t in named[:3]:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    return dense_plan(Bt, S, H, N, P)
+
+
+def _launch_dense(x, B, C, dA, dt) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check, plan and launch the dense scan kernel."""
+    p = _check_dense(x, B, C, dA, dt)
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
     y = torch.empty((Bt, S, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
@@ -262,9 +337,9 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     err = lib.ssd_chunk_scan(
         x.data_ptr(), B.data_ptr(), C.data_ptr(), dA.data_ptr(),
         dt.data_ptr(), y.data_ptr(), state.data_ptr(), Bt, S, H, N, P,
+        p.chunk, p.cols, p.grid[1], p.stages,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssd_chunk_scan")
-    ssd_chunk_scan.launches += 1
     return y, state
 
 

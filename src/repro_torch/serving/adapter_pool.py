@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ragged_lora import RANKS
 from repro_torch.core.alora import (
     AdapterSpec,
     adapter_rank_of,
@@ -58,6 +59,25 @@ def rank_bucket(rank: int, lo: int = 8) -> int:
     while v < rank:
         v *= 2
     return v
+
+
+def slot_rank_for(rank: int, device) -> int:
+    """The slot rank a pool on ``device`` holds for a requested ``rank``.
+    On a card the grouped-LoRA kernel takes only the rank buckets
+    ``ragged_lora.RANKS``, so the rank rounds up to the next of them
+    (zero padding: the padded columns add exact zeros) and a rank above
+    the largest raises ``ValueError``.  On the CPU the rank is kept as
+    given, as the reference's pool keeps it."""
+    if rank < 1:
+        raise ValueError(f"slot rank {rank} must be >= 1")
+    if torch.device(device).type != "cuda":
+        return rank
+    for bucket in RANKS:
+        if rank <= bucket:
+            return bucket
+    raise ValueError(f"slot rank {rank}: the card's LoRA kernel takes the "
+                     f"rank buckets {RANKS}, so adapters of rank above "
+                     f"{RANKS[-1]} are not served on the card")
 
 
 @dataclass
@@ -84,6 +104,7 @@ class AdapterPool:
                 or (staging_budget is not None and staging_budget < 1):
             raise ValueError("num_slots, slot_rank, staging_ttl and "
                              "staging_budget must be >= 1")
+        slot_rank = slot_rank_for(slot_rank, device)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None \

@@ -47,7 +47,7 @@ from repro_torch.models.model import check_supported
 from repro_torch.obs.tracer import Tracer
 from repro_torch.serving.adapter_pool import (AdapterPool,
                                               AdapterRegistration,
-                                              rank_bucket)
+                                              rank_bucket, slot_rank_for)
 from repro_torch.serving.metrics import (AdapterPoolStats, MetricsAggregate,
                                          aggregate)
 from repro_torch.serving.request import Request, State
@@ -135,10 +135,11 @@ class Engine:
             n_slots = engine_cfg.adapter_slots \
                 if engine_cfg.adapter_slots is not None \
                 else max(len(adapters), 1)
-            slot_rank = engine_cfg.adapter_slot_rank \
-                if engine_cfg.adapter_slot_rank is not None \
+            slot_rank = slot_rank_for(
+                engine_cfg.adapter_slot_rank
+                if engine_cfg.adapter_slot_rank is not None
                 else rank_bucket(max((s.rank for s, _ in adapters),
-                                     default=1))
+                                     default=1)), device)
             self.adapter_pool = AdapterPool(
                 cfg, num_slots=n_slots, slot_rank=slot_rank, device=device,
                 tracer=self.tracer,

@@ -1,7 +1,10 @@
-"""The launch plans of the grouped-LoRA and ragged-SSD kernels, on the CPU.
+"""The launch plans of the grouped-LoRA, ragged-SSD, dense-SSD and fused
+aLoRA QKV kernels, on the CPU.
 
-``repro_torch.kernels.ragged_lora.plan`` and
-``repro_torch.kernels.ssd_chunk.ragged_plan`` give each CUDA launch from
+``repro_torch.kernels.ragged_lora.plan``,
+``repro_torch.kernels.ssd_chunk.ragged_plan``,
+``repro_torch.kernels.ssd_chunk.dense_plan`` and
+``repro_torch.kernels.alora_qkv.plan`` give each CUDA launch from
 the shapes alone (a step can then be replayed from a CUDA graph per
 shape bucket, with no host read of device data).  These tests hold them
 to what the kernels need: grids and scratch that no index value changes,
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.configs import ATTN, SSM, _MODULES, get_config, get_reduced
+from repro_torch.kernels import alora_qkv as aq
 from repro_torch.kernels import build
 from repro_torch.kernels import ragged_lora as rl
 from repro_torch.kernels import ssd_chunk as sc
@@ -49,9 +53,11 @@ def _c_params(source, entry):
     return [re.findall(r"\w+", a)[-1] for a in m.group(1).split(",")]
 
 
-def _launched(monkeypatch, module, entry, *args):
-    """Run ``module._launch(*args)`` on CPU tensors against a stand-in
-    library; returns the C entry's arguments by the source's names."""
+def _launched(monkeypatch, module, entry, *args, launch="_launch",
+              source=None):
+    """Run ``module.<launch>(*args)`` on CPU tensors against a stand-in
+    library; returns the C entry's arguments by the names in ``source``
+    (by default the module's own ``.cu``)."""
     calls = []
 
     def fn(*c_args):
@@ -62,9 +68,10 @@ def _launched(monkeypatch, module, entry, *args):
                         lambda: SimpleNamespace(**{entry: fn}))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: SimpleNamespace(cuda_stream=None))
-    out = module._launch(*args)
+    out = getattr(module, launch)(*args)
     (c_args,) = calls
-    names = _c_params(module.__name__.rsplit(".", 1)[-1] + ".cu", entry)
+    names = _c_params(source or module.__name__.rsplit(".", 1)[-1] + ".cu",
+                      entry)
     assert len(c_args) == len(names) == len(build.SIGNATURES[entry])
     return out, dict(zip(names, c_args))
 
@@ -280,3 +287,202 @@ def test_scan_plan_constants_match_the_cuda_source():
 def test_scan_unsupported_shapes_raise(T, H, N, P, M):
     with pytest.raises(ValueError):
         sc.ragged_plan(T, H, N, P, M)
+
+
+# ---------------------------------------------------------------------------
+# dense SSD scan (the kernel bench's)
+# ---------------------------------------------------------------------------
+# the bench's shapes (mamba2-2.7b, zamba2-2.7b) and chip_smoke.py's
+# phase-5 edges: S off the chunks, P off the warp slices, Bt * H below
+# and above the 132 SMs
+DENSE_SHAPES = [(2, 2048, 80, 128, 64), (2, 2048, 80, 64, 64)] + [
+    (2, S, H, N, 40) for N in (32, 64, 128) for S in (70, 130)
+    for H in (3, 70)]
+
+
+def test_dense_plan_depends_on_shapes_only():
+    assert list(inspect.signature(sc.dense_plan).parameters) == \
+        ["Bt", "S", "H", "N", "P"]
+
+
+@pytest.mark.parametrize("Bt,S,H,N,P", DENSE_SHAPES)
+def test_dense_plan_covers_the_shapes(Bt, S, H, N, P):
+    p = sc.dense_plan(Bt, S, H, N, P)
+    H_, slices, Bt_ = p.grid
+    assert (H_, Bt_) == (H, Bt)
+    # every block covers real columns of P: the last slice may be short
+    assert p.cols % sc.DENSE_WARP_COLS == 0
+    assert 0 < p.cols <= sc.DENSE_MAX_COLS
+    assert (slices - 1) * p.cols < P <= slices * p.cols
+    assert p.chunk == sc.DENSE_CHUNK and p.stages in sc.DENSE_STAGES
+    # two blocks share an SM's shared memory
+    assert p.smem == sc.dense_smem(N, p.cols, p.stages)
+    assert p.smem <= sc.DENSE_SMEM_TARGET <= 227 * 1024 // 2
+    if Bt * H >= sc.SMS:    # enough (row, head) walks: C . B^T once each
+        assert slices == -(-P // sc.DENSE_MAX_COLS)
+    else:                   # P cut into slices to fill the SMs
+        assert slices > 1
+
+
+def test_dense_plan_at_the_bench_shapes():
+    p128 = sc.dense_plan(2, 2048, 80, 128, 64)
+    p64 = sc.dense_plan(2, 2048, 80, 64, 64)
+    assert p128.grid == p64.grid == (80, 1, 2)
+    assert p128.cols == p64.cols == 64
+    assert (p128.stages, p64.stages) == (2, 3)
+
+
+def test_dense_plan_constants_match_the_cuda_source():
+    const = _constants("ssd_chunk_dense.cu")
+    assert const["kWarpCols"] == sc.DENSE_WARP_COLS
+    assert const["kWarpCols"] * const["kMaxWarps"] == sc.DENSE_MAX_COLS
+    src = (CSRC / "ssd_chunk_dense.cu").read_text()
+    assert int(re.search(r"constexpr int Q = (\d+);", src).group(1)) \
+        == sc.DENSE_CHUNK
+    # kTiles = (Q / 16) * (Q / 16 + 1)
+    assert (sc.DENSE_CHUNK // 16) * (sc.DENSE_CHUNK // 16 + 1) \
+        == sc.DENSE_TILES
+    built = {int(n) for n in re.findall(r"case (\d+): return launch<", src)}
+    assert built == set(sc.DENSE_N)
+
+
+@pytest.mark.parametrize("Bt,S,H,N,P", [
+    (2, 64, 3, 16, 64),       # N not a built size
+    (2, 64, 3, 256, 64),      # N above 128
+    (2, 64, 3, 48, 64),
+    (2, 64, 3, 64, 60),       # P not a multiple of 8
+    (2, 64, 3, 64, 0),
+    (0, 64, 3, 64, 64),
+    (2, 64, 0, 64, 64),
+    (2, -1, 3, 64, 64),
+])
+def test_dense_unsupported_shapes_raise(Bt, S, H, N, P):
+    with pytest.raises(ValueError):
+        sc.dense_plan(Bt, S, H, N, P)
+
+
+@pytest.mark.parametrize("Bt,S,H,N,P", [(2, 70, 3, 32, 40),
+                                        (1, 130, 70, 128, 64)])
+def test_dense_launch_takes_the_plan(monkeypatch, Bt, S, H, N, P):
+    f = torch.zeros
+    args = (f((Bt, S, H, P)), f((Bt, S, H, N)), f((Bt, S, H, N)),
+            f((Bt, S, H)), f((Bt, S, H)))
+    (y, st), c = _launched(monkeypatch, sc, "ssd_chunk_scan", *args,
+                           launch="_launch_dense",
+                           source="ssd_chunk_dense.cu")
+    p = sc.dense_plan(Bt, S, H, N, P)
+    assert y.shape == (Bt, S, H, P) and st.shape == (Bt, H, N, P)
+    assert (c["chunk"], c["ps"], c["slices"], c["stages"]) == \
+        (p.chunk, p.cols, p.grid[1], p.stages)
+    assert (c["Bt"], c["S"], c["H"], c["N"], c["P"]) == (Bt, S, H, N, P)
+
+
+def test_dense_scan_with_no_tokens_launches_nothing(monkeypatch):
+    monkeypatch.setattr(build, "load", lambda: pytest.fail("launched"))
+    f = torch.zeros
+    y, st = sc._launch_dense(f((2, 0, 3, 8)), f((2, 0, 3, 32)),
+                             f((2, 0, 3, 32)), f((2, 0, 3)), f((2, 0, 3)))
+    assert y.shape == (2, 0, 3, 8)
+    assert torch.equal(st, torch.zeros((2, 3, 32, 8)))
+
+
+# ---------------------------------------------------------------------------
+# fused aLoRA QKV projection (the kernel bench's)
+# ---------------------------------------------------------------------------
+BF16, F32 = torch.bfloat16, torch.float32
+# the bench's shapes (granite-3.2-8b's fused Q/K/V, four rank-32
+# adapters) and chip_smoke.py's phase-5 edges
+ALORA_SHAPES = [(512, 4096, 6144, 32, 4, BF16), (128, 4096, 6144, 32, 4, BF16),
+                (128, 4096, 6144, 32, 4, F32)] + [
+    (T, 264, out, r, 5, dt) for T in (1, 100, 130, 300)
+    for out in (200, 6144) for r in (8, 32) for dt in (BF16, F32)]
+
+
+def test_alora_plan_depends_on_shapes_only():
+    assert list(inspect.signature(aq.plan).parameters) == \
+        ["T", "d", "out", "r", "n", "dtype"]
+
+
+@pytest.mark.parametrize("T,d,out,r,n,dtype", ALORA_SHAPES)
+def test_alora_plan_covers_the_shapes(T, d, out, r, n, dtype):
+    p = aq.plan(T, d, out, r, n, dtype)
+    mt, nt, split = p.grid
+    # every block covers a real tile and a non-empty run of k steps
+    assert (mt - 1) * p.bm < T <= mt * p.bm
+    assert (nt - 1) * p.bn < out <= nt * p.bn
+    assert 1 <= split <= p.ksteps == -(-d // (aq.ROW_BYTES // (
+        2 if dtype == BF16 else 4)))
+    assert p.bm == (64 if T <= 64 else 128)
+    assert p.bn in aq.TILES[dtype]
+    assert p.rp % aq.RANK_STEP == 0 and r <= p.rp < r + aq.RANK_STEP
+    assert p.smem == aq.tile_smem(p.bm, p.bn, p.stages) <= aq.MAX_SMEM
+    assert p.stages in (2, 3, 4)
+    if split > 1 and dtype == BF16:
+        assert p.smem <= aq.PAIR_SMEM    # two blocks to an SM
+    assert (p.reduce_blocks > 0) == (split > 1)
+    # the shrink: d runs of kc cover d, every run non-empty
+    kc, xs = p.shrink_kc, p.shrink_split
+    assert kc % 64 == 0 and (xs - 1) * kc < d <= xs * kc
+    assert p.shrink_grid == (-(-T // aq.SHRINK_ROWS), xs, n - 1)
+    assert p.shrink_smem == aq.shrink_smem(
+        2 if dtype == BF16 else 4, kc, p.rp) <= aq.MAX_SMEM
+
+
+def test_alora_plan_at_the_bench_shapes():
+    p512 = aq.plan(512, 4096, 6144, 32, 4, BF16)
+    assert (p512.bm, p512.bn, p512.grid) == (128, 192, (4, 32, 1))
+    p128 = aq.plan(128, 4096, 6144, 32, 4, BF16)
+    # W's bytes bound it: at least 132 blocks stream W
+    assert p128.bn == 128 and p128.grid[2] > 1
+    assert p128.grid[0] * p128.grid[1] * p128.grid[2] >= aq.SMS
+    f128 = aq.plan(128, 4096, 6144, 32, 4, F32)
+    # float32: one block to an SM, whole waves
+    assert f128.grid[2] > 1
+    assert f128.grid[0] * f128.grid[1] * f128.grid[2] <= aq.SMS
+
+
+def test_alora_plan_constants_match_the_cuda_source():
+    const = _constants("alora_qkv.cu")
+    assert const["kShrinkRows"] == aq.SHRINK_ROWS
+    assert const["kRowBytes"] == aq.ROW_BYTES
+    assert const["kReduceThreads"] == aq.REDUCE_THREADS
+    src = (CSRC / "alora_qkv.cu").read_text()
+    built = {(int(m), int(n)) for m, n in
+             re.findall(r"launch_tile<T, (\d+), (\d+)>", src)}
+    want = {(bm, bn) for dt in aq.TILES for bn in aq.TILES[dt]
+            for bm in (64, 128) if bn == 128 or bm == 128}
+    assert built == want
+
+
+@pytest.mark.parametrize("T,d,out,r,n,dtype", [
+    (8, 260, 64, 8, 2, BF16),      # d not a multiple of 8
+    (8, 64, 60, 8, 2, BF16),       # out not a multiple of 8
+    (8, 64, 64, 0, 2, BF16),
+    (8, 64, 64, 257, 2, BF16),     # rank above 256
+    (0, 64, 64, 8, 2, BF16),
+    (8, 64, 64, 8, 0, BF16),
+    (8, 64, 64, 8, 2, torch.float16),
+])
+def test_alora_unsupported_shapes_raise(T, d, out, r, n, dtype):
+    with pytest.raises(ValueError):
+        aq.plan(T, d, out, r, n, dtype)
+
+
+@pytest.mark.parametrize("T,d,out,r,n,dtype", [(1, 264, 200, 8, 5, BF16),
+                                               (128, 4096, 6144, 32, 4, F32),
+                                               (300, 264, 6144, 5, 3, BF16)])
+def test_alora_launch_takes_the_plan(monkeypatch, T, d, out, r, n, dtype):
+    f = torch.zeros
+    x = f((T, d), dtype=dtype)
+    args = (x, f((d, out), dtype=dtype), f((n, d, r), dtype=dtype),
+            f((n, r, out), dtype=dtype), f(T, dtype=torch.int32),
+            torch.empty((T, out), dtype=dtype))
+    _, c = _launched(monkeypatch, aq, "alora_qkv", *args)
+    p = aq.plan(T, d, out, r, n, dtype)
+    assert (c["rp"], c["bm"], c["bn"], c["stages"], c["split"],
+            c["ksteps"]) == (p.rp, p.bm, p.bn, p.stages, p.split, p.ksteps)
+    assert (c["xa_split"], c["xa_kc"], c["xa_blocks"],
+            c["reduce_blocks"]) == (p.shrink_split, p.shrink_kc,
+                                    p.xa_blocks, p.reduce_blocks)
+    assert (c["T"], c["d"], c["out_dim"], c["n"], c["r"], c["is_bf16"]) \
+        == (T, d, out, n, r, int(dtype == BF16))

@@ -115,6 +115,7 @@ def _alora_inputs(T, d, out, n, r, seed):
     (7, 32, 48, 4, 16),         # tiny T
     (256, 128, 256, 1, 4),      # zero-adapter-only stack
     (33, 48, 64, 5, 32),
+    (130, 264, 200, 5, 8),      # T, d and out off the CUDA kernel's tiles
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_alora_qkv_matches_pallas_and_ref(T, d, out, n, r, dtype):
@@ -163,6 +164,7 @@ def _ssd_inputs(Bt, S, H, P, N, seed):
     (1, 128, 2, 32, 16, 32),
     (2, 17, 1, 8, 4, 8),        # S not a multiple of the chunk
     (1, 96, 4, 64, 32, 48),     # bigger state
+    (1, 130, 2, 40, 32, 64),    # S and P off the CUDA kernel's tiles
 ])
 def test_ssd_chunk_scan_matches_pallas_and_ref(Bt, S, H, P, N, chunk):
     arrs = _ssd_inputs(Bt, S, H, P, N, seed=S)
