@@ -14,10 +14,14 @@ Phases, each of which exits non-zero on failure:
    the same work, and the time of one library call computing the same
    function where there is one: ragged paged attention (granite-3.2-8b's
    GQA widths in float32 and bfloat16, zamba2-2.7b's MHA at hd 80 in
-   bfloat16), the grouped LoRA delta (its fused Q/K/V entry at
-   granite's widths in float32 and bfloat16 and at zamba2's in
-   bfloat16, its one-pair entry at the SSM input projections of mamba2
-   and zamba2 in bfloat16; timed at T = 128 and at a T = 4 decode step),
+   bfloat16, and in both types stablelm-12b's hd 160, nemotron-4-15b's
+   G = 6 and starcoder2-3b's G = 12 under its 4096-token window on a
+   T = 128 chunk at positions 4,480..4,607 over a 512-block table, each
+   also at a T = 8 decode step), the grouped LoRA delta (its fused Q/K/V
+   entry at granite's widths in float32 and bfloat16 and at zamba2's and
+   the four dense families' in bfloat16, its one-pair entry at the SSM
+   input projections of mamba2 and zamba2 in bfloat16; timed at T = 128
+   and at a T = 4 decode step),
    the ragged SSD scan (float32, mamba2's N = 128 and zamba2's N = 64,
    with the runner's kept rows; timed at T = 128 and T = 4), each time
    split by the profiler into the call's CUDA kernels, and attention timed
@@ -27,7 +31,9 @@ Phases, each of which exits non-zero on failure:
    on a batch that reaches every tile and split edge (contexts around a
    split boundary, a window across one, a prefill chunk longer than a
    query tile and off its grid, interleaved rows, padded rows sharing a
-   tile) at granite's and zamba2's widths in both types; the fused
+   tile) at granite's, zamba2's and the dense families' widths and at hd
+   64, 96 and 160 with G 3, 6 and 12 (query tiles of 21, 10 and 5 rows),
+   in both types; the fused
    Q/K/V LoRA entry at T = 1, 4, 37 and 128 and ranks 8 and 256 in both
    types (NaN in slot 0 and in an inactive slot must change no output,
    rows on no active slot must be exact zeros); the ragged scan with kept
@@ -46,14 +52,21 @@ Phases, each of which exits non-zero on failure:
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
-   granite-3.2-8b (attention), mamba2-2.7b (pure SSM) and zamba2-2.7b
-   (hybrid), the SSM models reusing the base requests' state snapshots
-   (one fused Q/K/V LoRA call per attention layer and step, one
-   in-projection call and one scan per SSM layer and step); granite's
-   run records each step's packed and adapted tokens; a decode-window
-   profile follows granite and mamba2;
-4. parity of the kernel path: the reduced float32 granite, mamba2 and
-   zamba2 with two adapters cycling through one device slot, the same
+   granite-3.2-8b (attention), mamba2-2.7b (pure SSM), zamba2-2.7b
+   (hybrid) and the dense families stablelm-12b, minitron-4b,
+   nemotron-4-15b and starcoder2-3b (one model on the card at a time),
+   the SSM models reusing the base requests' state snapshots (one fused
+   Q/K/V LoRA call and one attention call per attention layer and step,
+   one in-projection call and one scan per SSM layer and step); each run
+   records each step's packed and adapted tokens; starcoder2 then serves
+   a 4,608-token prompt, so every row past position 4,096 runs under its
+   window, and its eval request reuses ≥ 4,096 tokens; a decode-window
+   profile follows every model but zamba2, beside the model's
+   weight-read bound;
+4. parity of the kernel path: the reduced float32 granite, mamba2,
+   zamba2 and dense families (minitron and nemotron at G = 3, starcoder2
+   with 150-token prompts past its 128-token window) with two adapters
+   cycling through one device slot, the same
    weights and the same pipeline on the card and on the CPU — identical
    tokens, prefix-cache hits (KV blocks and state snapshots),
    ``state_reused`` and adapter evictions; then a reduced granite engine
@@ -184,36 +197,62 @@ def attention_inputs(torch, cfg, dtype, gen):
                 n_real=n_real, tables=tables, lens=lens, rows=rows)
 
 
+# the dense families' B1 cases beside granite's and zamba2's: stablelm's
+# hd 160 (G 4), nemotron's G 6 and starcoder2's G 12 with its window
+DENSE_ATTN = ("stablelm", "nemotron", "starcoder2")
+# the dense families' short names (phase 2) and registry ids (phases 3-4)
+DENSE = ("stablelm", "minitron", "nemotron", "starcoder2")
+DENSE_ARCHS = ("stablelm-12b", "minitron-4b", "nemotron-4-15b",
+               "starcoder2-3b")
+
+
 def check_attention(torch, cfgs, timer, gen):
     """Ragged paged attention against its plain version at granite's
     widths (GQA: H 32, KV 8, hd 128; float32 with and without a sliding
-    window, and bfloat16) and zamba2's (MHA: H = KV = 32, hd 80;
-    bfloat16).  Results are keyed "float32", "bfloat16" (granite) and
-    "zamba2_bfloat16"."""
+    window, and bfloat16), zamba2's (MHA: H = KV = 32, hd 80; bfloat16)
+    and, in both types, stablelm's (H 32, KV 8, hd 160), nemotron's (H
+    48, KV 8: G 6) and starcoder2's (H 24, KV 2: G 12, on a T = 128 chunk
+    at positions 4,480..4,607 under its 4096-token window; table of 512
+    blocks, 32 splits).  Each dense family is also checked and timed at
+    a T = 8 decode step.  Results are keyed "float32", "bfloat16"
+    (granite), "zamba2_bfloat16" and "{family}_{dtype}"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import (
         ragged_paged_attention, ragged_paged_attention_ref)
     res = {}
-    for arch, dtype_name in (("granite", "float32"), ("granite", "bfloat16"),
-                             ("zamba2", "bfloat16")):
+    cases = [("float32", "granite", "float32"),
+             ("bfloat16", "granite", "bfloat16"),
+             ("zamba2_bfloat16", "zamba2", "bfloat16")] + [
+        (f"{arch}_{dt}", arch, dt) for arch in DENSE_ATTN
+        for dt in ("float32", "bfloat16")]
+    for key, arch, dtype_name in cases:
         cfg = cfgs[arch]
-        key = dtype_name if arch == "granite" else f"{arch}_{dtype_name}"
+        window = cfg.sliding_window
         label = (f"{key} (H {cfg.num_heads}, KV {cfg.num_kv_heads}, hd "
-                 f"{cfg.head_dim})")
+                 f"{cfg.head_dim}{f', window {window}' if window else ''})")
         dtype = getattr(torch, dtype_name)
-        a = attention_inputs(torch, cfg, dtype, gen)
+        if window:
+            a, d8 = window_inputs(torch, cfg, dtype, gen)
+        else:
+            a = attention_inputs(torch, cfg, dtype, gen)
+            # a pure-decode step of 8 running requests: T = 8, so only
+            # T x KV thread blocks for 132 SMs
+            d8 = dict(a, q=a["q"][:8].contiguous(),
+                      req_rows=a["req_rows"][:8].contiguous(),
+                      q_lens=a["q_lens"][:8].contiguous(), n_real=8,
+                      lens=a["lens"][:8], rows=a["rows"][:8])
         args = (a["q"], a["k_pool"], a["v_pool"], a["block_tables"],
                 a["req_rows"], a["q_lens"])
-        got = ragged_paged_attention(*args)
-        want = ragged_paged_attention_ref(*args)
+        got = ragged_paged_attention(*args, window=window)
+        want = ragged_paged_attention_ref(*args, window=window)
         torch.cuda.synchronize()
         n = a["n_real"]
         err, rel, row_rel = rel_err(got, want, slice(0, n))
         if row_rel > TOL[dtype_name]:
             fail(f"ragged_paged_attention {label}: max|err| {err}, "
                  f"{row_rel} of a row's max|plain| > {TOL[dtype_name]}")
-        if dtype_name == "float32":
+        if key == "float32":
             # the sliding-window branch of the kernel's loop
             got_w = ragged_paged_attention(*args, window=WINDOW)
             want_w = ragged_paged_attention_ref(*args, window=WINDOW)
@@ -226,39 +265,46 @@ def check_attention(torch, cfgs, timer, gen):
             print(f"  ragged_paged_attention float32 window={WINDOW}: "
                   f"max|err| {err_w:.3e} (row rel {row_rel_w:.3e})",
                   flush=True)
-        if bool(got[n:].float().abs().max() != 0):
+        if n < got.shape[0] and bool(got[n:].float().abs().max() != 0):
             fail("ragged_paged_attention: q_lens == 0 rows are not zero")
         # the kernel never reads past q_len: NaN in the dump block
         # (padding entries of every table) must not reach any row
         a["k_pool"][-1] = float("nan")
         a["v_pool"][-1] = float("nan")
-        again = ragged_paged_attention(*args)
+        again = ragged_paged_attention(*args, window=window)
         torch.cuda.synchronize()
         if not torch.equal(again, got):
-            fail("ragged_paged_attention reads past q_len (dump block)")
+            fail(f"ragged_paged_attention {label} reads past q_len (dump "
+                 "block)")
         a["k_pool"][-1] = 0.0
         a["v_pool"][-1] = 0.0
-        entry = {"max_abs_err": err, "rel_err": rel, "row_rel_err": row_rel,
+        entry = {"H": cfg.num_heads, "KV": cfg.num_kv_heads,
+                 "hd": cfg.head_dim, "window": window, "T": got.shape[0],
+                 "max_abs_err": err, "rel_err": rel, "row_rel_err": row_rel,
                  "tol": TOL[dtype_name]}
-        if dtype_name == "float32":
+        if key == "float32":
             entry.update(window=WINDOW, max_abs_err_window=err_w,
                          row_rel_err_window=row_rel_w)
-        if dtype_name == "bfloat16":
+        if dtype_name == "bfloat16" or arch in DENSE_ATTN:
             entry.update(time_attention(torch, F, timer, a, args, dtype_name,
                                         ragged_paged_attention,
                                         ragged_paged_attention_ref))
-        if key == "bfloat16":
-            # a pure-decode step of 8 running requests: T = 8, so only
-            # T x KV = 64 thread blocks for 132 SMs
-            d8 = dict(a, q=a["q"][:8].contiguous(),
-                      req_rows=a["req_rows"][:8].contiguous(),
-                      q_lens=a["q_lens"][:8].contiguous(), n_real=8,
-                      lens=a["lens"][:8], rows=a["rows"][:8])
+        if key == "bfloat16" or arch in DENSE_ATTN:
             args8 = (d8["q"], d8["k_pool"], d8["v_pool"], d8["block_tables"],
                      d8["req_rows"], d8["q_lens"])
+            got8 = ragged_paged_attention(*args8, window=window)
+            want8 = ragged_paged_attention_ref(*args8, window=window)
+            torch.cuda.synchronize()
+            _, _, row_rel8 = rel_err(got8, want8)
+            if row_rel8 > TOL[dtype_name]:
+                fail(f"ragged_paged_attention {label} decode T=8: "
+                     f"{row_rel8} of a row's max|plain| > {TOL[dtype_name]}")
             entry["decode8"] = time_attention(
                 torch, F, timer, d8, args8, dtype_name,
                 ragged_paged_attention, ragged_paged_attention_ref)
+            entry["decode8"]["row_rel_err"] = row_rel8
+            del got8, want8
+        if key == "bfloat16":
             entry["long"] = check_long_context(torch, F, timer, a, gen)
         res[key] = entry
         print(f"  ragged_paged_attention {label}: max|err| {err:.3e} "
@@ -275,8 +321,45 @@ def check_attention(torch, cfgs, timer, gen):
                       f"{e['library_ms']:.4f} ms, bound "
                       f"{e['bound_ms']:.4f} ms ({e['bound_by']})",
                       flush=True)
-        del a, args, got, want, again
+        del a, d8, args, got, want, again
     return res
+
+
+def window_inputs(torch, cfg, dtype, gen, bs=16, nbb=512):
+    """starcoder2's sliding-window batches over the engine's 512-block
+    table (32 splits of 256 tokens): a T = 128 prefill chunk at positions
+    4,480..4,607 of one request (each row's window of ``cfg``'s 4096
+    keys starts inside a split), and a T = 8 decode step of eight
+    requests with contexts 4,097..8,000 (all past the window).  Returns
+    the two batches as :func:`attention_inputs` does."""
+    contexts = [4097, 4300, 4608, 5000, 5500, 6000, 7000, 8000, 4608]
+    KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    nblk = [-(-c // bs) for c in contexts]
+    NB = sum(nblk) + 1
+    dump = NB - 1
+    perm = torch.randperm(NB - 1, generator=gen).tolist()
+    tables, used = [], 0
+    for n in nblk:
+        tables.append(perm[used:used + n])
+        used += n
+    bt = torch.full((len(contexts), nbb), dump, dtype=torch.int32)
+    for r, t in enumerate(tables):
+        bt[r, :len(t)] = torch.tensor(t, dtype=torch.int32)
+    dev = "cuda"
+    kp = torch.randn((NB, bs, KV, hd), generator=gen).to(dev, dtype)
+    vp = torch.randn((NB, bs, KV, hd), generator=gen).to(dev, dtype)
+    out = []
+    for rows, lens in (([8] * 128, list(range(4481, 4609))),
+                       (list(range(8)), contexts[:8])):
+        T = len(rows)
+        out.append(dict(
+            q=torch.randn((T, H, hd), generator=gen).to(dev, dtype),
+            k_pool=kp, v_pool=vp, block_tables=bt.to(dev),
+            req_rows=torch.tensor(rows, dtype=torch.int32, device=dev),
+            q_lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+            n_real=T, tables=tables, lens=lens, rows=rows,
+            window=cfg.sliding_window))
+    return out
 
 
 def time_attention(torch, F, timer, a, args, dtype_name, kernel, plain):
@@ -286,19 +369,22 @@ def time_attention(torch, F, timer, a, args, dtype_name, kernel, plain):
     _, bs, KV, _ = a["k_pool"].shape
     es = q.element_size()
     n = a["n_real"]
+    window = a.get("window", 0)
     lens, rows, tables = a["lens"], a["rows"], a["tables"]
     blocks = set()
     ops = 0
     for t in range(n):
-        blocks.update(tables[rows[t]][:(lens[t] + bs - 1) // bs])
-        ops += 4 * H * hd * lens[t]                  # QK^T and PV
+        lo = max(0, lens[t] - window) if window else 0
+        blocks.update(tables[rows[t]][lo // bs:-(-lens[t] // bs)])
+        ops += 4 * H * hd * (lens[t] - lo)           # QK^T and PV
     nbytes = 2 * T * H * hd * es + 2 * len(blocks) * bs * KV * hd * es \
         + 4 * (a["block_tables"].numel() + 2 * T)
     bound_ms, bound_by = bound(nbytes, ops, dtype_name)
-    ms = timer(lambda: kernel(*args))
+    kw = {"window": window}
+    ms = timer(lambda: kernel(*args, **kw))
     # device ms per launch of each CUDA kernel of the call (tile, merge)
-    split = device_split(SimpleNamespace(args=args, kwargs={}), kernel, timer)
-    plain_ms = timer(lambda: plain(*args))
+    split = device_split(SimpleNamespace(args=args, kwargs=kw), kernel, timer)
+    plain_ms = timer(lambda: plain(*args, **kw))
     # library yardstick: scaled_dot_product_attention over K/V gathered
     # per token beforehand, with the same mask (timed here only)
     nbb = a["block_tables"].shape[1]
@@ -306,8 +392,10 @@ def time_attention(torch, F, timer, a, args, dtype_name, kernel, plain):
     k = a["k_pool"][bt].reshape(T, nbb * bs, KV, hd).transpose(1, 2)
     v = a["v_pool"][bt].reshape(T, nbb * bs, KV, hd).transpose(1, 2)
     k, v = k.contiguous(), v.contiguous()
-    pos = torch.arange(nbb * bs, device="cuda")
-    mask = (pos[None, :] < a["q_lens"][:, None])[:, None, None, :]
+    pos = torch.arange(nbb * bs, device="cuda")[None, :]
+    ql = a["q_lens"][:, None]
+    mask = (pos < ql) & (pos >= ql - window) if window else pos < ql
+    mask = mask[:, None, None, :]
     qq = q[:, :, None, :]
     library_ms = timer(lambda: F.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask, enable_gqa=True))
@@ -371,9 +459,10 @@ def edge_batch(torch, cfg, dtype, gen):
     80-row prefill chunk at positions 200..279 packed from row 4 (longer
     than a tile, off the tile grid, across a split boundary); 12 rows of
     two requests interleaved (non-contiguous rows of one request); a
-    4-row chunk followed by 4 padded rows (q_lens 0) of the same request
-    row, which share its tile.  Table entries past each context point at
-    the pool's last block (the dump block)."""
+    6-row chunk followed by 4 padded rows (q_lens 0) of the same request
+    row, which share its last tile at every M = 64 // G of 64 down to 5
+    (it starts at packed row 96).  Table entries past each context point
+    at the pool's last block (the dump block)."""
     bs, nb = 16, 48
     KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     rows, lens = [0, 1, 2, 3], [255, 256, 257, 560]
@@ -381,9 +470,9 @@ def edge_batch(torch, cfg, dtype, gen):
     lens += list(range(201, 281))
     rows += [5, 6] * 6
     lens += [p for i in range(6) for p in (300 + i, 600 + i)]
-    rows += [7] * 8
-    lens += [11, 12, 13, 14, 0, 0, 0, 0]
-    ctx = [255, 256, 257, 560, 280, 305, 605, 14]
+    rows += [7] * 10
+    lens += [11, 12, 13, 14, 15, 16, 0, 0, 0, 0]
+    ctx = [255, 256, 257, 560, 280, 305, 605, 16]
     NB = len(ctx) * nb + 1
     perm = torch.randperm(NB - 1, generator=gen).tolist()
     bt = torch.full((len(ctx), nb), NB - 1, dtype=torch.int32)
@@ -402,22 +491,37 @@ def edge_batch(torch, cfg, dtype, gen):
     return args, torch.tensor(lens, device=dev) > 0
 
 
-def check_attention_edges(torch, cfgs, gen):
-    """Ragged paged attention on :func:`edge_batch` at granite's (G 4)
-    and zamba2's (G 1) widths, float32 and bfloat16, with no window and
-    a 24-token one (which straddles the split boundary for the context
-    257): within TOL of each live row's max |plain|, zeros on the padded
-    rows, and no output changed by NaN in the dump block.  Returns
-    {case: row relative error}."""
+# (label, H, KV, hd) of the edge batch: granite (G 4) and zamba2 (G 1,
+# hd 80), the dense families at full width (stablelm hd 160; minitron,
+# nemotron and starcoder2: G 3, 6 and 12, tiles of 21, 10 and 5 rows),
+# and the head sizes of the configs still to port (64, 96) crossed with
+# the new group sizes
+EDGE_SHAPES = (("granite", 32, 8, 128), ("zamba2", 32, 32, 80),
+               ("stablelm", 32, 8, 160), ("minitron", 24, 8, 128),
+               ("nemotron", 48, 8, 128), ("starcoder2", 24, 2, 128),
+               ("hd64_G3", 24, 8, 64), ("hd96_G6", 48, 8, 96),
+               ("hd160_G12", 24, 2, 160))
+
+
+def check_attention_edges(torch, gen):
+    """Ragged paged attention on :func:`edge_batch` at every shape of
+    ``EDGE_SHAPES``, float32 and bfloat16, with no window and a 24-token
+    one (which straddles the split boundary for the context 257): within
+    TOL of each live row's max |plain|, zeros on the padded rows, and no
+    output changed by NaN in the dump block.  Returns {case: row
+    relative error}."""
     from repro_torch.kernels.paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_ref)
+        plan, ragged_paged_attention, ragged_paged_attention_ref)
     res = {}
-    for arch in ("granite", "zamba2"):
+    for label, H, KV, hd in EDGE_SHAPES:
+        shape = SimpleNamespace(num_heads=H, num_kv_heads=KV, head_dim=hd)
         for dtype_name in ("float32", "bfloat16"):
-            args, live = edge_batch(torch, cfgs[arch],
+            args, live = edge_batch(torch, shape,
                                     getattr(torch, dtype_name), gen)
+            M = plan(args[0].shape[0], H, KV, hd, 16,
+                     args[3].shape[1]).tile_rows
             for window in (0, WINDOW):
-                key = f"ragged_{arch}_{dtype_name}_window{window}"
+                key = f"ragged_{label}_{dtype_name}_window{window}"
                 got = ragged_paged_attention(*args, window=window)
                 want = ragged_paged_attention_ref(*args, window=window)
                 torch.cuda.synchronize()
@@ -438,7 +542,8 @@ def check_attention_edges(torch, cfgs, gen):
                     fail(f"ragged_paged_attention edges {key}: NaN in the "
                          "dump block reached the output")
                 res[key] = row_rel
-                print(f"  {key}: {row_rel:.3e} of a row's max|plain| (tol "
+                print(f"  {key} (H {H}, KV {KV}, hd {hd}, tiles of {M} "
+                      f"rows): {row_rel:.3e} of a row's max|plain| (tol "
                       f"{TOL[dtype_name]}); zero rows and dump-block NaN "
                       "held", flush=True)
             del args, got, want, again
@@ -448,15 +553,17 @@ def check_attention_edges(torch, cfgs, gen):
 def lora_cases(cfgs):
     """(key, dtype, d, out widths) of every shape the main paths give the
     grouped LoRA delta: granite's fused Q/K/V (float32 and bfloat16),
-    zamba2's fused Q/K/V, and the SSM input projection of mamba2 and
-    zamba2 (bfloat16; one pair)."""
+    zamba2's and the four dense families' fused Q/K/V, and the SSM input
+    projection of mamba2 and zamba2 (bfloat16; one pair)."""
     from repro_torch.models.ssm import in_proj_dim
     g, m, z = cfgs["granite"], cfgs["mamba2"], cfgs["zamba2"]
     qkv = lambda c: (c.num_heads * c.head_dim,  # noqa: E731
                      c.num_kv_heads * c.head_dim, c.num_kv_heads * c.head_dim)
     return [(f"{dt}_qkv", dt, g.d_model, qkv(g))
             for dt in ("float32", "bfloat16")] + [
-        ("bfloat16_zamba2_qkv", "bfloat16", z.d_model, qkv(z)),
+        ("bfloat16_zamba2_qkv", "bfloat16", z.d_model, qkv(z))] + [
+        (f"bfloat16_{a}_qkv", "bfloat16", cfgs[a].d_model, qkv(cfgs[a]))
+        for a in DENSE] + [
         (f"bfloat16_mamba2_in_proj_out{in_proj_dim(m)}", "bfloat16",
          m.d_model, (in_proj_dim(m),)),
         (f"bfloat16_zamba2_in_proj_out{in_proj_dim(z)}", "bfloat16",
@@ -1020,14 +1127,22 @@ def run_pipeline(torch, eng, adapter_names=("eval",), **kw):
     return res, step_ms
 
 
-def main_path(torch, arch: str, profile: bool):
+# the paper's base -> aLoRA traffic of every main path, and starcoder2's
+# second run with a prompt past its 4096-token window
+PIPE = dict(prompt_len=256, gen_len=32, eval_len=8, batch=4, seed=0)
+LONG_PIPE = dict(prompt_len=4608, gen_len=16, eval_len=8, batch=1, seed=0)
+
+
+def main_path(torch, arch: str, profile: bool, long: bool = False):
     """Serve ``arch`` at full width (random weights from a seed, one
-    rank-32 aLoRA adapter) through the base → aLoRA pipeline and hold the
-    launch counts, the reuse and the drained pools to what the path must
-    give; with ``profile``, then time a decode window."""
-    from repro_torch.configs import SSM, get_config
+    rank-32 aLoRA adapter) through the base → aLoRA pipeline (``PIPE``)
+    and hold the launch counts, the reuse and the drained pools to what
+    the path must give; with ``long``, then serve ``LONG_PIPE`` on the
+    same engine (every eval request reusing ≥ 4,096 tokens); with
+    ``profile``, then time a decode window."""
+    from repro_torch.common import tree_leaves
+    from repro_torch.configs import get_config
     from repro_torch.core.alora import AdapterSpec, init_adapter_weights
-    from repro_torch.models.layers import padded_vocab
     from repro_torch.models.model import init_params
     from repro_torch.serving import Engine
 
@@ -1039,10 +1154,55 @@ def main_path(torch, arch: str, profile: bool):
     eng = Engine(cfg, params, device="cuda",
                  adapters=[(AdapterSpec("eval", 32, INV), adapter)])
     torch.cuda.synchronize()
-    print(f"  {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
-          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     tree_leaves(params)) / 1e9
+    print(f"  {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters "
+          f"({weights_gb:.2f} GB), {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB on the card, set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    summary = serve_pipeline(torch, eng, cfg, PIPE, min_hits=256)
+    summary.update(arch=arch, weights_gb=weights_gb,
+                   window=cfg.sliding_window)
+    if long:
+        print(f"  {cfg.name} again with {LONG_PIPE}", flush=True)
+        summary["long"] = serve_pipeline(torch, eng, cfg, LONG_PIPE,
+                                         min_hits=4096)
+    if arch == "granite-3.2-8b":
+        # the per-step host-embedding upload the assembly mirrors from
+        # the reference: a (128, d) float32 pinned buffer, non_blocking
+        host = torch.empty((128, cfg.d_model), dtype=torch.float32,
+                           pin_memory=True)
+        from repro_torch.kernels.bench import Timer
+        up = Timer("cuda")(lambda: host.to("cuda", non_blocking=True))
+        print(f"  host-embed upload (128 x {cfg.d_model} fp32): {up:.4f} ms",
+              flush=True)
+        summary["host_embed_upload_ms"] = up
+    if profile:
+        summary["decode_profile"] = profile_decode(torch, eng, cfg)
+        # the least time a decode step could take: every weight read
+        # once at the HBM rate
+        summary["decode_profile"]["weight_read_bound_ms"] = \
+            bound(weights_gb * 1e9, 0, "bfloat16")[0]
+    # the timed step wrapper refers back to the engine: collect the cycle
+    # so the next model finds the card empty
+    del eng, params, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def serve_pipeline(torch, eng, cfg, pipe, min_hits):
+    """One ``pipelines.base_adapter`` run on ``eng`` with every kernel
+    count set to 0 just before and read just after: each request's
+    tokens, every eval request reusing ≥ ``min_hits`` prompt tokens (and
+    restoring a state snapshot on SSM stacks), one fused Q/K/V call and
+    one attention call per attention layer and mixed step, one
+    in-projection call and one scan per SSM layer and step, and the pools
+    drained.  Returns the run's summary."""
+    from repro_torch.configs import SSM
+    from repro_torch.models.layers import padded_vocab
     torch.cuda.reset_peak_memory_stats()
+    steps0 = eng.runner.call_counts["mixed_step"]
     # the shape of every mixed step: packed tokens, adapted tokens, active
     # adapter slots (which B2 launches at which shapes)
     shapes = []
@@ -1056,11 +1216,10 @@ def main_path(torch, arch: str, profile: bool):
 
     eng.runner.submit_batch = recorded
     reset_counts()
-    res, step_ms = run_pipeline(torch, eng, prompt_len=256, gen_len=32,
-                                eval_len=8, batch=4, seed=0)
+    res, step_ms = run_pipeline(torch, eng, **pipe)
     counts = dict(zip(SERVING, read_counts()))
     eng.runner.submit_batch = submit
-    steps = eng.runner.call_counts["mixed_step"]
+    steps = eng.runner.call_counts["mixed_step"] - steps0
     ids = res.base_ids + res.eval_ids
     outs = [eng.request(i).output_tokens for i in ids]
     emitted = sum(len(o) for o in outs)
@@ -1086,11 +1245,11 @@ def main_path(torch, arch: str, profile: bool):
           f"{share['T_of_adapted_steps']}", flush=True)
     vpad = padded_vocab(cfg)
     for rid, o in zip(ids, outs):
-        want = 32 if rid in res.base_ids else 8
+        want = pipe["gen_len"] if rid in res.base_ids else pipe["eval_len"]
         if len(o) != want or not all(0 <= t < vpad for t in o):
             fail(f"request {rid}: tokens {o} are not {want} ids < {vpad}")
-    if min(hits) < 256:
-        fail(f"an eval request reused fewer than 256 tokens: {hits}")
+    if min(hits) < min_hits:
+        fail(f"an eval request reused fewer than {min_hits} tokens: {hits}")
     Ls = cfg.pattern().count(SSM)
     La = cfg.num_layers - Ls
     if Ls and not all(reused):
@@ -1121,32 +1280,18 @@ def main_path(torch, arch: str, profile: bool):
     phase_ms = {k: statistics.mean(v) for k, v in phases.items()}
     print("  mean host ms per phase: " + ", ".join(
         f"{k} {v:.3f}" for k, v in phase_ms.items()), flush=True)
-    summary = {"arch": arch, "steps": steps,
-               "step_ms_mean": statistics.mean(step_ms),
-               "step_ms_median": statistics.median(step_ms),
-               "tokens_emitted": emitted, "eval_cache_hits": hits,
-               "eval_state_reused": reused,
-               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": counts, "adapted": share,
-               "phase_ms": phase_ms}
-    if arch == "granite-3.2-8b":
-        # the per-step host-embedding upload the assembly mirrors from
-        # the reference: a (128, d) float32 pinned buffer, non_blocking
-        host = torch.empty((128, cfg.d_model), dtype=torch.float32,
-                           pin_memory=True)
-        from repro_torch.kernels.bench import Timer
-        up = Timer("cuda")(lambda: host.to("cuda", non_blocking=True))
-        print(f"  host-embed upload (128 x {cfg.d_model} fp32): {up:.4f} ms",
-              flush=True)
-        summary["host_embed_upload_ms"] = up
-    if profile:
-        summary["decode_profile"] = profile_decode(torch, eng, cfg)
-    # the timed step wrapper refers back to the engine: collect the cycle
-    # so the next model finds the card empty
-    del eng, params, adapter
-    gc.collect()
-    torch.cuda.empty_cache()
-    return summary
+    return {"pipeline": pipe, "steps": steps,
+            "step_ms_mean": statistics.mean(step_ms),
+            "step_ms_median": statistics.median(step_ms),
+            "tokens_emitted": emitted, "eval_cache_hits": hits,
+            "eval_state_reused": reused,
+            "max_position": max(len(eng.request(i).prompt)
+                                + len(eng.request(i).output_tokens)
+                                for i in ids),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts,
+            "launches_per_step": {k: v / steps for k, v in counts.items()},
+            "adapted": share, "phase_ms": phase_ms}
 
 
 def profile_decode(torch, eng, cfg, n_steps: int = 8):
@@ -1267,11 +1412,12 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
     return out
 
 
-def parity(torch, arch: str):
+def parity(torch, arch: str, prompt_len: int = 40):
     """The reduced float32 ``arch`` with two adapters cycling through one
     device slot: the same weights and pipeline on the card and on the CPU
     give identical tokens, prefix-cache hits (KV blocks and state
-    snapshots), ``state_reused`` and adapter evictions."""
+    snapshots), ``state_reused`` and adapter evictions.  (The reduced
+    starcoder2 is given prompts longer than its 128-token window.)"""
     from repro_torch.configs import get_reduced
     from repro_torch.core.alora import AdapterSpec, init_adapter_weights
     from repro_torch.models.model import init_params
@@ -1291,7 +1437,7 @@ def parity(torch, arch: str):
         eng = Engine(cfg, params, device=device, adapters=adapters,
                      engine_cfg=EngineConfig(adapter_slots=1))
         res, _ = run_pipeline(torch, eng, adapter_names=("eval", "lora"),
-                              prompt_len=40, gen_len=12, eval_len=6,
+                              prompt_len=prompt_len, gen_len=12, eval_len=6,
                               batch=3, seed=3)
         reqs = [eng.request(i) for i in res.base_ids + res.eval_ids]
         runs[device] = dict(
@@ -1304,7 +1450,9 @@ def parity(torch, arch: str):
     if runs["cuda"] != runs["cpu"]:
         fail(f"{arch}: card and CPU disagree: {runs}")
     r = runs["cpu"]
-    print(f"  {cfg.name} card == CPU: {len(r['tokens'])} requests, KV hits "
+    print(f"  {cfg.name} card == CPU (prompts of {prompt_len}, G "
+          f"{cfg.num_heads // cfg.num_kv_heads}, window {cfg.sliding_window},"
+          f" {cfg.activation}): {len(r['tokens'])} requests, KV hits "
           f"{r['kv_hits']}, state hits {r['state_hits']}, state_reused "
           f"{sum(r['state_reused'])}, adapter evictions {r['evictions']}",
           flush=True)
@@ -1435,12 +1583,13 @@ def main() -> None:
     print("[2] kernels vs plain", flush=True)
     cfgs = {"granite": get_config("granite-3.2-8b"),
             "mamba2": get_config("mamba2-2.7b"),
-            "zamba2": get_config("zamba2-2.7b")}
+            "zamba2": get_config("zamba2-2.7b"),
+            **{k: get_config(a) for k, a in zip(DENSE, DENSE_ARCHS)}}
     cfg = cfgs["granite"]
     gen = torch.Generator().manual_seed(0)
     timer = Timer("cuda")
     attn = check_attention(torch, cfgs, timer, gen)
-    attn_edges = check_attention_edges(torch, cfgs, gen)
+    attn_edges = check_attention_edges(torch, gen)
     lora = check_lora(torch, cfgs, timer, gen)
     lora_edges = check_lora_edges(torch, cfgs, gen)
     scan = check_ssd_scan(torch, timer, gen)
@@ -1451,14 +1600,19 @@ def main() -> None:
 
     print("[3] main path, full width", flush=True)
     mp = {}
-    for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b"):
+    for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
+                 *DENSE_ARCHS):
         print(f" [3] {arch}", flush=True)
         mp[arch] = main_path(torch, arch,
-                             profile=arch != "zamba2-2.7b")
+                             profile=arch != "zamba2-2.7b",
+                             long=arch == "starcoder2-3b")
 
     print("[4] parity, reduced fp32, card vs CPU", flush=True)
     par = {arch: parity(torch, arch)
-           for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b")}
+           for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
+                        *DENSE_ARCHS[:3])}
+    # past the reduced starcoder2's 128-token window
+    par["starcoder2-3b"] = parity(torch, "starcoder2-3b", prompt_len=150)
     par["slot_rank"] = slot_rank_card(torch)
 
     print("[5] kernel bench entry point, full width", flush=True)
@@ -1498,6 +1652,19 @@ def main() -> None:
                      "device_split_ms")},
             decode_attention_device_ms_per_step=g["decode_profile"][
                 "attention_device_ms_per_step"],
+            dense={key: {k: v for k, v in attn[key].items()
+                         if k != "bytes" and k != "ops"}
+                   for key in attn if key.split("_")[0] in DENSE_ATTN},
+            launches_dense={a: mp[a]["launches"]["ragged_paged_attention"]
+                            for a in DENSE_ARCHS},
+            launches_per_step_dense={
+                a: mp[a]["launches_per_step"]["ragged_paged_attention"]
+                for a in DENSE_ARCHS},
+            launches_starcoder2_long=mp["starcoder2-3b"]["long"][
+                "launches"]["ragged_paged_attention"],
+            decode_attention_device_ms_per_step_dense={
+                a: mp[a]["decode_profile"]["attention_device_ms_per_step"]
+                for a in DENSE_ARCHS},
             edge_rel_err=attn_edges),
         kernel_entry(
             "ragged_grouped_lora", "src/repro_torch/csrc/ragged_lora.cu",
@@ -1525,7 +1692,15 @@ def main() -> None:
                         "rel_err", *timed),
             zamba2_decode4=pick(lora["bfloat16_zamba2_qkv"]["decode4"],
                                 "max_abs_err", "rel_err", *timed),
-            adapted_granite=g["adapted"], edge_rel_err=lora_edges),
+            adapted_granite=g["adapted"],
+            dense={a: {**pick(lora[f"bfloat16_{a}_qkv"], "d", "out",
+                              "max_abs_err", "rel_err", *timed),
+                       "decode4": pick(lora[f"bfloat16_{a}_qkv"]["decode4"],
+                                       "max_abs_err", "rel_err", *timed)}
+                   for a in DENSE},
+            launches_dense={a: mp[a]["launches"]["ragged_grouped_lora_qkv"]
+                            for a in DENSE_ARCHS},
+            edge_rel_err=lora_edges),
         kernel_entry(
             "ragged_ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk.cu",
             "src/repro/kernels/ssd_chunk.py:178",

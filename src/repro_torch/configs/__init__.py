@@ -6,18 +6,20 @@ that ports it.
 """
 from __future__ import annotations
 
-from repro_torch.configs import granite3_8b, mamba2_2_7b, zamba2_2_7b
+from repro_torch.configs import (granite3_8b, mamba2_2_7b, minitron_4b,
+                                  nemotron_4_15b, stablelm_12b,
+                                  starcoder2_3b, zamba2_2_7b)
 from repro_torch.configs.base import ATTN, SSM, ModelConfig  # noqa: F401
 
 _MODULES = {"granite-3.2-8b": granite3_8b, "mamba2-2.7b": mamba2_2_7b,
-            "zamba2-2.7b": zamba2_2_7b}
+            "zamba2-2.7b": zamba2_2_7b, "stablelm-12b": stablelm_12b,
+            "minitron-4b": minitron_4b, "nemotron-4-15b": nemotron_4_15b,
+            "starcoder2-3b": starcoder2_3b}
 
 # reference architectures still to be ported -> ROADMAP queue A item
 _NOT_PORTED = {
-    "whisper-large-v3": "A10", "phi3.5-moe-42b-a6.6b": "A10",
-    "granite-moe-1b-a400m": "A10", "phi-3-vision-4.2b": "A10",
-    "starcoder2-3b": "A10", "stablelm-12b": "A10",
-    "nemotron-4-15b": "A10", "minitron-4b": "A10",
+    "phi3.5-moe-42b-a6.6b": "A10b", "granite-moe-1b-a400m": "A10b",
+    "phi-3-vision-4.2b": "A10c", "whisper-large-v3": "A10d",
 }
 
 

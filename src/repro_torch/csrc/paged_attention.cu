@@ -21,10 +21,13 @@
 // copies and products (PERF.md gives the measured split).
 //
 // Layout.  Query tiles come from the indices alone: a tile is a run of
-// at most M = 64 / G consecutive packed rows with one req_rows value
-// that does not cross a multiple of M (row t heads a tile when t % M == 0
-// or req_rows[t-1] != req_rows[t]), so a tile holds at most 64 query rows
-// (token x query head of one KV head).  A decode singleton is its own
+// at most M = 64 / G (rounded down) consecutive packed rows with one
+// req_rows value that does not cross a multiple of M (row t heads a tile
+// when t % M == 0 or req_rows[t-1] != req_rows[t]), so a tile holds at
+// most 64 query rows (token x query head of one KV head).  G = H / KV
+// is any 1..64 (a row's token and head are found by division); when it
+// does not divide 64 (3, 6, 12) the tile's rows from M * G to 63 are
+// zeros that are never written.  A decode singleton is its own
 // tile; a prefill chunk's rows share one pass over its K/V, each row with
 // its own causal mask; rows of one request need not be contiguous (they
 // only make more tiles).  The grid is (T, KV, splits): splits =
@@ -54,6 +57,10 @@
 //            for P V (the row sums stay fp32).  KT = 64.
 //   float32: the same tiling with SIMT FMA products from shared memory,
 //            exact float32 (no TF32).  KT = 32.
+// Head sizes 32, 64, 80, 96, 128 and 160 are built.  The largest keeps
+// 80 accumulator floats and (bf16) 40 Q fragment registers a thread:
+// 203 registers in bf16 and 185 in float32, no spills (ptxas, sm_90a),
+// and ~87 KB (bf16) or ~128 KB (float32) of shared memory a block.
 // A row whose valid positions lie in one split is written by that
 // split's block; a row spanning several splits writes an fp32 partial
 // (max, sum, unnormalised accumulator) per split, and a second small
@@ -132,7 +139,7 @@ struct Args {
   float* part_acc;  // (T, H, splits, hd), rows spanning several splits
   float* part_ml;   // (T, H, splits, 2): running max (log2 domain), sum
   int T_, H, KV, bs, nb, window, n_split;
-  int bs_shift, g_shift;  // log2 of the block size and of G = H / KV
+  int bs_shift;           // log2 of the block size
   float scale_log2;       // 1 / sqrt(hd) * log2(e)
 };
 
@@ -314,6 +321,7 @@ paged_attention_tile_kernel(const Args<T> a) {
                 "whole copy rounds");
   static_assert(2 * KT >= kRows || sizeof(T) == 4,
                 "bf16 Q staging fits one stage");
+  static_assert(HD % 16 == 0, "head size: whole 16-wide mma k steps");
   using Ops = typename OpsOf<T, HD>::type;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -388,8 +396,9 @@ paged_attention_tile_kernel(const Args<T> a) {
     const int c = tid + i * kThreads;
     const int qr = c / CPR, part = c - qr * CPR;
     const bool ok = qr < rq;
-    const T* src = a.q + (size_t)(t0 + (qr >> a.g_shift)) * row_stride +
-                   (kv * G + (qr & (G - 1))) * HD + part * EPC;
+    const int qt = qr / G;  // the row's token in the tile, and its head
+    const T* src = a.q + (size_t)(t0 + qt) * row_stride +
+                   (kv * G + qr - qt * G) * HD + part * EPC;
     cp_async16(sq_u + (qr * LD + part * EPC) * (int)sizeof(T), ok ? src : a.q,
                ok);
   }
@@ -680,7 +689,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* q_lens, void* out, void* part_acc,
                    void* part_ml, int T_, int H, int KV, int hd, int bs,
                    int nb, int window, float scale, cudaStream_t stream) {
-  if (KV <= 0 || H % KV != 0 || kRows % (H / KV) != 0 || bs <= 0 ||
+  if (KV <= 0 || H % KV != 0 || H / KV > kRows || bs <= 0 ||
       (bs & (bs - 1)) != 0 || nb <= 0)
     return cudaErrorInvalidValue;
   Args<T> a;
@@ -701,12 +710,14 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   a.window = window;
   a.n_split = (nb * bs + kSplit - 1) / kSplit;
   a.bs_shift = __builtin_ctz(bs);
-  a.g_shift = __builtin_ctz(H / KV);
   a.scale_log2 = scale * kLog2e;
   switch (hd) {
     case 32: return launch_hd<T, 32>(a, stream);
+    case 64: return launch_hd<T, 64>(a, stream);
     case 80: return launch_hd<T, 80>(a, stream);
+    case 96: return launch_hd<T, 96>(a, stream);
     case 128: return launch_hd<T, 128>(a, stream);
+    case 160: return launch_hd<T, 160>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -38,7 +38,9 @@ NEG_INF = -1e30
 SPLIT = 256             # context tokens per split (grid.z): the CUDA
                         # source's kSplit, which it also cuts the span by
 TILE_QUERY_ROWS = 64    # query rows (token x query head) per tile
-HEAD_DIMS = (32, 80, 128)   # the head sizes it is built for (the configs')
+# the head sizes it is built for: every attention config of the
+# reference's registry, ported or not
+HEAD_DIMS = (32, 64, 80, 96, 128, 160)
 
 
 @dataclass(frozen=True)
@@ -49,7 +51,7 @@ class Plan:
     The CUDA source sizes each block's shared memory (asserting at
     compile time that it fits the card) from the dtype and hd."""
     grid: Tuple[int, int, int]      # (T, KV, splits)
-    tile_rows: int                  # M: packed rows per query tile
+    tile_rows: int                  # M = 64 // G packed rows per tile
     # fp32 scratch of rows spanning several splits: the accumulators
     # (T, H, splits, hd), then each split's max and sum (T, H, splits, 2);
     # None when there is one split
@@ -64,9 +66,9 @@ def plan(T: int, H: int, KV: int, hd: int, bs: int, nb: int) -> Plan:
     if KV <= 0 or H % KV:
         raise ValueError(f"H {H} is not a multiple of KV {KV}")
     G = H // KV
-    if TILE_QUERY_ROWS % G:
+    if G > TILE_QUERY_ROWS:
         raise ValueError(f"G = H / KV = {G} query heads per KV head: the "
-                         f"kernel takes G dividing {TILE_QUERY_ROWS}")
+                         f"kernel takes G up to {TILE_QUERY_ROWS}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}: the kernel is built for "
                          f"{HEAD_DIMS}")

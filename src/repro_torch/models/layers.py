@@ -60,11 +60,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def activation_fn(name: str):
+    """The non-gated MLP activations (swiglu is gated, in ``mlp_apply``)."""
+    if name == "squared_relu":
+        return lambda x: torch.square(F.relu(x))
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name}")
+
+
 def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.activation != "swiglu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported yet (ROADMAP A10)")
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    """swiglu: ``silu(x @ w_gate) * (x @ w_up)``; the other activations
+    are non-gated, ``act(x @ w_up)`` with no ``w_gate``.  Every product
+    and activation stays in x's dtype, as in the reference."""
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = activation_fn(cfg.activation)(x @ p["w_up"])
     return h @ p["w_down"]
 
 

@@ -8,7 +8,7 @@ Parameters are a plain dictionary::
     {"embed": {"tok": (Vpad, d)[, "unembed": (d, Vpad)]},
      "final_norm": (d,),
      "layers": [{"ln1", "attn": {"wq","wk","wv","wo"}, "ln2",
-                 "mlp": {"w_gate","w_up","w_down"}}      # attention
+                 "mlp": {"w_up","w_down"[,"w_gate" (swiglu)]}}
                 | {"ln", "ssm": {"in_z", "in_xbc", ...}},  # SSM
                 ...]}
 
@@ -41,14 +41,14 @@ def check_supported(cfg: ModelConfig) -> None:
                          f"{sorted(kinds - {ATTN, SSM})}")
     if SSM in kinds and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: SSM layers need an SSMConfig")
-    for what, present in (("mixture-of-experts", cfg.moe is not None),
-                          ("encoder-decoder", cfg.is_encoder_decoder),
-                          ("vision/audio frontends", cfg.frontend != "none"),
-                          ("sliding-window attention",
-                           cfg.sliding_window > 0)):
+    for what, present, item in (
+            ("mixture-of-experts", cfg.moe is not None, "A10b"),
+            (f"the {cfg.frontend} frontend", cfg.frontend != "none",
+             "A10c" if cfg.frontend == "vision" else "A10d"),
+            ("encoder-decoder", cfg.is_encoder_decoder, "A10d")):
         if present:
             raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP A10)")
+                f"{cfg.name}: {what} is not ported yet (ROADMAP {item})")
 
 
 def effective_window(cfg: ModelConfig) -> int:
@@ -111,6 +111,10 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
             layers.append({"ln": ones(),
                            "ssm": init_ssm(generator, cfg, dtype, dev)})
             continue
+        mlp = {"w_up": normal((d, cfg.d_ff), std),
+               "w_down": normal((cfg.d_ff, d), out_std)}
+        if cfg.activation == "swiglu":      # gated: the reference's init_mlp
+            mlp["w_gate"] = normal((d, cfg.d_ff), std)
         layers.append({
             "ln1": ones(),
             "attn": {"wq": normal((d, H * hd), std),
@@ -118,9 +122,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                      "wv": normal((d, KV * hd), std),
                      "wo": normal((H * hd, d), out_std)},
             "ln2": ones(),
-            "mlp": {"w_up": normal((d, cfg.d_ff), std),
-                    "w_down": normal((cfg.d_ff, d), out_std),
-                    "w_gate": normal((d, cfg.d_ff), std)},
+            "mlp": mlp,
         })
     return {"embed": embed, "final_norm": ones(), "layers": layers}
 

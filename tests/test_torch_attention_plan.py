@@ -5,7 +5,8 @@ the shapes alone: the grid (packed rows, KV heads, context splits), the
 query-tile size and the split scratch.  These tests hold it to what the
 kernel needs: a grid that no length changes (a step can be replayed from
 a CUDA graph per shape bucket), splits that cover the table's span
-exactly, a plan for every attention config of the port, the constants
+exactly, a plan for every attention config of the reference's
+registry (ported or not) with query tiles of ``64 // G`` rows, the constants
 the CUDA source holds, and a ``ValueError`` for a head size, a G or a
 block size the kernel does not take.  Each block's shared memory is
 sized in the CUDA source, which asserts at compile time that it fits
@@ -17,15 +18,20 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import ATTN, _MODULES, get_config, get_reduced
+from repro.configs import all_configs as ref_configs
+from repro.configs import get_config as ref_config
+from repro.configs import get_reduced as ref_reduced
+from repro_torch.configs import ATTN
 from repro_torch.kernels import paged_attention as pa
 
 SOURCE = Path(pa.__file__).resolve().parents[1] / "csrc" / \
     "paged_attention.cu"
-# every configuration of the port that has attention layers
-ATTN_CONFIGS = [(arch, reduced) for arch in sorted(_MODULES)
+# every configuration of the reference's registry that has attention
+# layers, full and reduced, ported or not (read from ``repro.configs``:
+# the port may not import it, a test may)
+ATTN_CONFIGS = [(arch, reduced) for arch in sorted(ref_configs())
                 for reduced in (False, True)
-                if ATTN in (get_reduced if reduced else get_config)(arch)
+                if ATTN in (ref_reduced if reduced else ref_config)(arch)
                 .pattern()]
 
 
@@ -73,11 +79,27 @@ def test_splits_cover_the_span_exactly(bs, nb):
 
 @pytest.mark.parametrize("arch,reduced", ATTN_CONFIGS)
 def test_every_attention_config_has_a_plan(arch, reduced):
-    cfg = (get_reduced if reduced else get_config)(arch)
+    cfg = (ref_reduced if reduced else ref_config)(arch)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = pa.plan(128, H, KV, hd, 16, 512)
-    assert p.tile_rows * (H // KV) == pa.TILE_QUERY_ROWS
+    assert p.tile_rows == pa.TILE_QUERY_ROWS // (H // KV)
     assert p.grid == (128, KV, 32) and p.partials == (128, H, 32, hd)
+
+
+@pytest.mark.parametrize("G,M", [(1, 64), (3, 21), (4, 16), (6, 10),
+                                 (12, 5), (48, 1), (64, 1)])
+@pytest.mark.parametrize("nb", [1, 17, 512])
+def test_any_group_size_gets_tiles_and_covering_splits(G, M, nb):
+    """G need not divide 64: the tile takes M = 64 // G packed rows (at
+    most 64 query rows), and the splits still cover the span exactly at
+    M = 21, 10 and 5."""
+    KV, bs = 2, 16
+    p = pa.plan(100, G * KV, KV, 128, bs, nb)
+    assert p.tile_rows == M and M * G <= pa.TILE_QUERY_ROWS < (M + 1) * G
+    span, S = nb * bs, p.grid[2]
+    assert p.grid == (100, KV, S) and (S - 1) * pa.SPLIT < span <= \
+        S * pa.SPLIT
+    assert p.partials == (None if S == 1 else (100, G * KV, S, 128))
 
 
 def test_plan_constants_match_the_cuda_source():
@@ -89,9 +111,10 @@ def test_plan_constants_match_the_cuda_source():
     assert tuple(int(h) for h in built) == pa.HEAD_DIMS
 
 
-@pytest.mark.parametrize("H,KV,hd", [(32, 8, 16), (32, 8, 64), (32, 8, 136),
-                                     (32, 8, 256), (12, 4, 128),
-                                     (128, 1, 128), (32, 6, 128)])
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 16), (24, 8, 136),
+                                     (32, 8, 136), (32, 8, 256),
+                                     (256, 2, 128), (128, 1, 128),
+                                     (32, 6, 128)])
 def test_unsupported_shapes_raise(H, KV, hd):
     with pytest.raises(ValueError):
         pa.plan(8, H, KV, hd, 16, 4)

@@ -109,7 +109,7 @@ def test_sequential_mode_raises_naming_roadmap_item(small):
                engine_cfg=EngineConfig(execution_mode="sequential"))
 
 
-@pytest.mark.parametrize("arch,item", [("starcoder2-3b", "A10"),
+@pytest.mark.parametrize("arch,item", [("phi-3-vision-4.2b", "A10c"),
                                        ("granite-moe-1b-a400m", "A10"),
                                        ("whisper-large-v3", "A10"),
                                        ("phi3.5-moe-42b-a6.6b", "A10")])
@@ -123,7 +123,7 @@ def test_unported_configs_raise_naming_roadmap_item(arch, item):
      "A10"),
     ({"is_encoder_decoder": True}, "A10"),
     ({"frontend": "vision"}, "A10"),
-    ({"sliding_window": 64}, "A10")])
+    ({"frontend": "audio"}, "A10")])
 def test_unported_families_raise_at_construction(kw, item):
     cfg = get_reduced("granite-3.2-8b").replace(**kw)
     with pytest.raises(NotImplementedError, match=item):

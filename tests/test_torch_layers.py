@@ -1,6 +1,9 @@
 """The port's layers and model assembly against ``repro.models`` on the
 reduced granite with converted weights (float32).  Tolerance 1e-5: the
-two frameworks' matmuls and reductions sum in different orders."""
+two frameworks' matmuls and reductions sum in different orders.  The
+layouts, init shapes and MLP are also held on the reduced dense families
+with the non-gated activations (minitron's squared ReLU, starcoder2's
+tanh GELU; no ``w_gate``, untied ``unembed``), the MLP within 1e-6."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,10 +28,9 @@ torch.set_num_threads(1)
 RTOL = ATOL = 1e-5
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg_j = jax_reduced("granite-3.2-8b")
-    cfg = get_reduced("granite-3.2-8b")
+def _setup(arch):
+    cfg_j = jax_reduced(arch)
+    cfg = get_reduced(arch)
     pj = JM.init_params(jax.random.key(0), cfg_j)
     ads = [jax_adapter(jax.random.key(k), cfg_j, 8) for k in (5, 6)]
     jstack = jax_stack(cfg_j, ads, 8)
@@ -41,44 +43,95 @@ def setup():
                 al=per_layer_adapters(cfg, stack))
 
 
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("granite-3.2-8b")
+
+
+# the reduced dense families of each non-gated activation
+@pytest.fixture(scope="module", params=["minitron-4b", "starcoder2-3b"],
+                ids=["squared_relu", "gelu"])
+def family(request):
+    return _setup(request.param)
+
+
 def _x(*shape, seed=0):
     a = np.random.RandomState(seed).randn(*shape).astype(np.float32)
     return jnp.asarray(a), torch.from_numpy(a)
 
 
-def _close(got, want):
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
-                               atol=ATOL)
+def _close(got, want, tol=RTOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
 
 
-def test_converted_params_keep_layouts(setup):
-    cfg, params, pj = setup["cfg"], setup["params"], setup["pj"]
+def _check_layouts(s):
+    cfg, params, pj = s["cfg"], s["params"], s["pj"]
     assert params["embed"]["tok"].shape == (L.padded_vocab(cfg),
                                             cfg.d_model)
-    assert L.padded_vocab(cfg) == JL.padded_vocab(setup["cfg_j"])
+    assert L.padded_vocab(cfg) == JL.padded_vocab(s["cfg_j"])
+    assert set(params["embed"]) == set(pj["embed"])
+    for k in pj["embed"]:
+        np.testing.assert_array_equal(params["embed"][k].numpy(),
+                                      np.asarray(pj["embed"][k]))
     np.testing.assert_array_equal(params["final_norm"].numpy(),
                                   np.asarray(pj["final_norm"]))
-    for (kind, lp), jl in zip(M.iter_layers(params, cfg), setup["jlayers"]):
+    for (kind, lp), jl in zip(M.iter_layers(params, cfg), s["jlayers"]):
         assert kind == "attn"
         for k in ("wq", "wk", "wv", "wo"):
             np.testing.assert_array_equal(lp["attn"][k].numpy(),
                                           np.asarray(jl["attn"][k]))
-        for k in ("w_gate", "w_up", "w_down"):
+        assert set(lp["mlp"]) == set(jl["mlp"])
+        for k in jl["mlp"]:
             np.testing.assert_array_equal(lp["mlp"][k].numpy(),
                                           np.asarray(jl["mlp"][k]))
 
 
-def test_init_params_shapes_match_reference(setup):
-    cfg = setup["cfg"]
+def _check_init_shapes(s):
+    cfg = s["cfg"]
     mine = M.init_params(torch.Generator().manual_seed(0), cfg,
                          device="cpu")
-    ref = setup["params"]
-    assert mine["embed"]["tok"].shape == ref["embed"]["tok"].shape
+    ref = s["params"]
+    assert {k: v.shape for k, v in mine["embed"].items()} == \
+        {k: v.shape for k, v in ref["embed"].items()}
     for a, b in zip(mine["layers"], ref["layers"]):
         for sub in ("attn", "mlp"):
             assert {k: v.shape for k, v in a[sub].items()} == \
                 {k: v.shape for k, v in b[sub].items()}
-    assert M.period_segments(cfg) == JM.period_segments(setup["cfg_j"])
+    assert M.period_segments(cfg) == JM.period_segments(s["cfg_j"])
+
+
+def test_converted_params_keep_layouts(setup):
+    _check_layouts(setup)
+
+
+def test_init_params_shapes_match_reference(setup):
+    _check_init_shapes(setup)
+
+
+def test_dense_family_converted_params_keep_layouts(family):
+    assert "w_gate" not in family["params"]["layers"][0]["mlp"]
+    assert "unembed" in family["params"]["embed"]
+    _check_layouts(family)
+
+
+def test_dense_family_init_params_shapes_match_reference(family):
+    _check_init_shapes(family)
+
+
+def test_dense_family_mlp_matches_reference(family):
+    """``mlp_apply`` and the MLP sublayer with the non-gated activation,
+    float32, within 1e-6."""
+    cfg, cfg_j = family["cfg"], family["cfg_j"]
+    for lp, jl in zip(family["params"]["layers"], family["jlayers"]):
+        jx, tx = _x(6, cfg.d_model, seed=3)
+        _close(L.mlp_apply(lp["mlp"], cfg, tx),
+               JL.mlp_apply(jl["mlp"], cfg_j, jx), 1e-6)
+        _close(M.mlp_sublayer(lp, cfg, tx),
+               JM.mlp_sublayer(jl, cfg_j, JM.Runtime(), jx)[0], 1e-6)
+    jx, tx = _x(40, seed=8)
+    for name in ("squared_relu", "gelu"):
+        _close(L.activation_fn(name)(tx), JL.activation_fn(name)(jx), 1e-6)
 
 
 def test_rmsnorm_and_rope(setup):
