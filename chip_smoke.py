@@ -16,12 +16,14 @@ Phases, each of which exits non-zero on failure:
    GQA widths in float32 and bfloat16, zamba2-2.7b's MHA at hd 80 in
    bfloat16, and in both types stablelm-12b's hd 160, nemotron-4-15b's
    G = 6 and starcoder2-3b's G = 12 under its 4096-token window on a
-   T = 128 chunk at positions 4,480..4,607 over a 512-block table, each
-   also at a T = 8 decode step), the grouped LoRA delta (its fused Q/K/V
-   entry at granite's widths in float32 and bfloat16 and at zamba2's and
-   the four dense families' in bfloat16, its one-pair entry at the SSM
-   input projections of mamba2 and zamba2 in bfloat16; timed at T = 128
-   and at a T = 4 decode step),
+   T = 128 chunk at positions 4,480..4,607 over a 512-block table,
+   granite-moe-1b's G = 2 at hd 64 and phi-3-vision's MHA at hd 96, each
+   also at a T = 8 decode step; phi3.5-moe's widths are granite's), the
+   grouped LoRA delta (its fused Q/K/V entry at granite's widths in
+   float32 and bfloat16 and at zamba2's, the four dense families',
+   granite-moe's and phi-3-vision's in bfloat16, its one-pair entry at
+   the SSM input projections of mamba2 and zamba2 in bfloat16; timed at
+   T = 128 and at a T = 4 decode step),
    the ragged SSD scan (float32, mamba2's N = 128 and zamba2's N = 64,
    with the runner's kept rows; timed at T = 128 and T = 4), each time
    split by the profiler into the call's CUDA kernels, and attention timed
@@ -48,13 +50,22 @@ Phases, each of which exits non-zero on failure:
    NaN in slot 0 and in an adapter no row is on, and the indices -1 and
    n, all of which must change no output) and the dense SSD chunk scan
    (S 70 and 130 off its chunks, P 40 off its column slices, N 32, 64
-   and 128, with Bt * H below and above the 132 SMs);
+   and 128, with Bt * H below and above the 132 SMs); then the MoE layer
+   (masked dense: plain batched products, no kernel of its own) against
+   its plain version that adds the experts one after another, bf16 at
+   granite-moe's and phi3.5-moe's full widths, T = 128 and 4, timed
+   beside the bytes of the experts its routes touch, of every expert, and
+   its operations;
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
    granite-3.2-8b (attention), mamba2-2.7b (pure SSM), zamba2-2.7b
-   (hybrid) and the dense families stablelm-12b, minitron-4b,
-   nemotron-4-15b and starcoder2-3b (one model on the card at a time),
+   (hybrid), the dense families stablelm-12b, minitron-4b,
+   nemotron-4-15b and starcoder2-3b, the MoE models granite-moe-1b-a400m
+   and phi3.5-moe (24 of its 32 layers: all 32 do not fit on the card)
+   and phi-3-vision-4.2b on images (576 patch embeddings under
+   pseudo-tokens, then 256 text tokens; each eval reuses ≥ 832 tokens
+   and a request on another image none), one model on the card at a time,
    the SSM models reusing the base requests' state snapshots (one fused
    Q/K/V LoRA call and one attention call per attention layer and step,
    one in-projection call and one scan per SSM layer and step); each run
@@ -62,10 +73,13 @@ Phases, each of which exits non-zero on failure:
    a 4,608-token prompt, so every row past position 4,096 runs under its
    window, and its eval request reuses ≥ 4,096 tokens; a decode-window
    profile follows every model but zamba2, beside the model's
-   weight-read bound;
+   weight-read bound (on the MoE models also beside the bytes the step's
+   routes touch, and with no copy of an expert weight in the step);
 4. parity of the kernel path: the reduced float32 granite, mamba2,
-   zamba2 and dense families (minitron and nemotron at G = 3, starcoder2
-   with 150-token prompts past its 128-token window) with two adapters
+   zamba2, dense families (minitron and nemotron at G = 3, starcoder2
+   with 150-token prompts past its 128-token window), MoE models (with
+   their routes' smallest top-k margin) and phi-3-vision (on images of
+   its 16 patches) with two adapters
    cycling through one device slot, the same
    weights and the same pipeline on the card and on the CPU — identical
    tokens, prefix-cache hits (KV blocks and state snapshots),
@@ -94,6 +108,7 @@ of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -204,6 +219,18 @@ DENSE_ATTN = ("stablelm", "nemotron", "starcoder2")
 DENSE = ("stablelm", "minitron", "nemotron", "starcoder2")
 DENSE_ARCHS = ("stablelm-12b", "minitron-4b", "nemotron-4-15b",
                "starcoder2-3b")
+# the mixture-of-experts and vision-prefix families, likewise
+MOE_VLM = ("granitemoe", "phimoe", "phivision")
+MOE_VLM_ARCHS = ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
+                 "phi-3-vision-4.2b")
+# their B1 and B2 cases: granite-moe's 16/8/64 (G 2) and phi-3-vision's
+# MHA 32/32/96; phi3.5-moe's attention (32/8/128) and Q/K/V widths (4096
+# -> 4096/1024/1024) are granite-3.2-8b's, whose cases cover it
+NEW_ATTN = ("granitemoe", "phivision")
+# phi3.5-moe on one 80 GB card: 24 of its 32 layers (all 32 are 83.7 GB
+# of bf16 weights)
+PHIMOE_LAYERS = 24
+IMAGE_TOKEN = 1                 # the pseudo-token id under every patch
 
 
 def check_attention(torch, cfgs, timer, gen):
@@ -211,11 +238,13 @@ def check_attention(torch, cfgs, timer, gen):
     widths (GQA: H 32, KV 8, hd 128; float32 with and without a sliding
     window, and bfloat16), zamba2's (MHA: H = KV = 32, hd 80; bfloat16)
     and, in both types, stablelm's (H 32, KV 8, hd 160), nemotron's (H
-    48, KV 8: G 6) and starcoder2's (H 24, KV 2: G 12, on a T = 128 chunk
+    48, KV 8: G 6), starcoder2's (H 24, KV 2: G 12, on a T = 128 chunk
     at positions 4,480..4,607 under its 4096-token window; table of 512
-    blocks, 32 splits).  Each dense family is also checked and timed at
-    a T = 8 decode step.  Results are keyed "float32", "bfloat16"
-    (granite), "zamba2_bfloat16" and "{family}_{dtype}"."""
+    blocks, 32 splits), granite-moe's (H 16, KV 8, hd 64: G 2) and
+    phi-3-vision's (MHA: H = KV = 32, hd 96).  Each of those five is also
+    checked and timed at a T = 8 decode step.  Results are keyed
+    "float32", "bfloat16" (granite), "zamba2_bfloat16" and
+    "{family}_{dtype}"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import (
@@ -224,7 +253,7 @@ def check_attention(torch, cfgs, timer, gen):
     cases = [("float32", "granite", "float32"),
              ("bfloat16", "granite", "bfloat16"),
              ("zamba2_bfloat16", "zamba2", "bfloat16")] + [
-        (f"{arch}_{dt}", arch, dt) for arch in DENSE_ATTN
+        (f"{arch}_{dt}", arch, dt) for arch in DENSE_ATTN + NEW_ATTN
         for dt in ("float32", "bfloat16")]
     for key, arch, dtype_name in cases:
         cfg = cfgs[arch]
@@ -285,11 +314,11 @@ def check_attention(torch, cfgs, timer, gen):
         if key == "float32":
             entry.update(window=WINDOW, max_abs_err_window=err_w,
                          row_rel_err_window=row_rel_w)
-        if dtype_name == "bfloat16" or arch in DENSE_ATTN:
+        if dtype_name == "bfloat16" or arch in DENSE_ATTN + NEW_ATTN:
             entry.update(time_attention(torch, F, timer, a, args, dtype_name,
                                         ragged_paged_attention,
                                         ragged_paged_attention_ref))
-        if key == "bfloat16" or arch in DENSE_ATTN:
+        if key == "bfloat16" or arch in DENSE_ATTN + NEW_ATTN:
             args8 = (d8["q"], d8["k_pool"], d8["v_pool"], d8["block_tables"],
                      d8["req_rows"], d8["q_lens"])
             got8 = ragged_paged_attention(*args8, window=window)
@@ -553,8 +582,9 @@ def check_attention_edges(torch, gen):
 def lora_cases(cfgs):
     """(key, dtype, d, out widths) of every shape the main paths give the
     grouped LoRA delta: granite's fused Q/K/V (float32 and bfloat16),
-    zamba2's and the four dense families' fused Q/K/V, and the SSM input
-    projection of mamba2 and zamba2 (bfloat16; one pair)."""
+    zamba2's, the four dense families', granite-moe's and phi-3-vision's
+    fused Q/K/V, and the SSM input projection of mamba2 and zamba2
+    (bfloat16; one pair)."""
     from repro_torch.models.ssm import in_proj_dim
     g, m, z = cfgs["granite"], cfgs["mamba2"], cfgs["zamba2"]
     qkv = lambda c: (c.num_heads * c.head_dim,  # noqa: E731
@@ -563,7 +593,7 @@ def lora_cases(cfgs):
             for dt in ("float32", "bfloat16")] + [
         ("bfloat16_zamba2_qkv", "bfloat16", z.d_model, qkv(z))] + [
         (f"bfloat16_{a}_qkv", "bfloat16", cfgs[a].d_model, qkv(cfgs[a]))
-        for a in DENSE] + [
+        for a in DENSE + NEW_ATTN] + [
         (f"bfloat16_mamba2_in_proj_out{in_proj_dim(m)}", "bfloat16",
          m.d_model, (in_proj_dim(m),)),
         (f"bfloat16_zamba2_in_proj_out{in_proj_dim(z)}", "bfloat16",
@@ -749,6 +779,83 @@ def check_lora_edges(torch, cfgs, gen):
                       f"{TOL[dtype_name]}); NaN in slots 0 and 3 and all-"
                       "inactive rows held", flush=True)
                 del x, pairs, got, want, again, dead
+    return res
+
+
+def moe_bounds(cfg, idx, T):
+    """The MoE layer's least times, in ms, on ``T`` bf16 rows routed to
+    ``idx``: the bytes of the experts the routes touch (each touched
+    expert's weights, the float32 router, x and the output, once each)
+    at 3.35 TB/s; the bytes of every expert (what masked dense reads);
+    and the masked-dense operations (every expert on every row: 2 d f per
+    weight matrix, and the router's 2 d E) at 989 TFLOP/s."""
+    from repro_torch.kernels.bench import BF16_PEAK, HBM_BYTES_PER_S
+    m, d = cfg.moe, cfg.d_model
+    mats = 3 if cfg.activation == "swiglu" else 2
+    expert = mats * d * m.d_ff * 2
+    touched = len(set(idx.flatten().tolist()))
+    rest = 4 * d * m.num_experts + 2 * 2 * T * d
+    ops = m.num_experts * T * mats * 2 * d * m.d_ff + 2 * T * d * m.num_experts
+    return {"experts_touched": touched, "expert_bytes": expert,
+            "bound_touched_bytes_ms": (touched * expert + rest)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_all_bytes_ms": (m.num_experts * expert + rest)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_ops_ms": ops / BF16_PEAK * 1e3}
+
+
+def check_moe(torch, cfgs, timer):
+    """The MoE layer on the card (``moe_masked_dense``: one batched
+    product per weight over the expert axis, one reduction over E)
+    against its plain version that adds the experts' outputs one after
+    another in bf16, as the reference's scan does; bf16 at granite-moe's
+    and phi3.5-moe's full widths, T = 128 and T = 4, one layer of random
+    weights and N(0, 1) rows (the post-norm scale).  Within 2e-2 of max
+    |plain| (the two round the sum over E differently); the routes are
+    shared.  Times: the layer, its device ms and the plain version, beside
+    :func:`moe_bounds`."""
+    from repro_torch.kernels.bench import call_device_ms
+    from repro_torch.models.moe import (init_moe, moe_masked_dense,
+                                        moe_masked_dense_ref, route)
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name in ("granitemoe", "phimoe"):
+        cfg = cfgs[name]
+        p = init_moe(gen, cfg, torch.bfloat16, "cuda")
+        for T in (128, 4):
+            key = f"{name}_T{T}"
+            x = torch.randn((T, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            got, _ = moe_masked_dense(p, cfg, x)
+            want = moe_masked_dense_ref(p, cfg, x)
+            torch.cuda.synchronize()
+            err, rel, row_rel = rel_err(got, want)
+            if rel > TOL["bfloat16"]:
+                fail(f"MoE layer {key}: max|err| {err} = {rel} of max|plain| "
+                     f"> {TOL['bfloat16']}")
+            r = {"T": T, "E": cfg.moe.num_experts,
+                 "k": cfg.moe.experts_per_token, "d": cfg.d_model,
+                 "f": cfg.moe.d_ff, "max_abs_err": err, "rel_err": rel,
+                 "row_rel_err": row_rel, "tol": TOL["bfloat16"],
+                 **moe_bounds(cfg, route(p, cfg, x)[1], T),
+                 "ms": timer(lambda: moe_masked_dense(p, cfg, x)),
+                 "device_ms": call_device_ms(
+                     lambda: moe_masked_dense(p, cfg, x), timer),
+                 "plain_ms": timer(lambda: moe_masked_dense_ref(p, cfg, x),
+                                   n=5, warmup=1)}
+            res[key] = r
+            print(f"  MoE layer {cfg.name} bf16 T={T} (E {r['E']}, top "
+                  f"{r['k']}, d {r['d']}, f {r['f']}): max|err| {err:.3e} "
+                  f"(rel {rel:.3e}, tol {TOL['bfloat16']}); {r['ms']:.4f} ms "
+                  f"(device {r['device_ms']:.4f}), sequential plain "
+                  f"{r['plain_ms']:.3f} ms; {r['experts_touched']} experts "
+                  f"touched: bound {r['bound_touched_bytes_ms']:.4f} ms "
+                  f"(their bytes), {r['bound_all_bytes_ms']:.4f} (every "
+                  f"expert's bytes), {r['bound_ops_ms']:.4f} (masked-dense "
+                  "operations)", flush=True)
+            del x, got, want
+        del p
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1108,7 +1215,52 @@ def read_counts():
     return tuple(c[k].launches for k in SERVING)
 
 
+def vision_traffic(eng, *, adapter_names, prompt_len, gen_len, eval_len,
+                   batch, seed):
+    """The base → adapter pipeline on images: each of ``batch`` prompts is
+    ``num_patches`` pseudo-tokens under its own image's patch embeddings
+    (N(0, 0.02) from ``seed``, salted with their digest), then
+    ``prompt_len`` text tokens; each adapter's eval request is x + y +
+    its invocation tokens on the same image.  Then one base request with
+    prompt 0's tokens under another image (``other_ids``), which may
+    reuse none of the first image's blocks.  Returns the request ids as
+    ``pipelines.base_adapter`` does, the other request among the base
+    ones."""
+    import hashlib
+    rng = np.random.RandomState(seed)
+    cfg = eng.cfg
+    pseudo = [IMAGE_TOKEN] * cfg.num_patches
+    images = []
+    for _ in range(batch + 1):
+        pe = (rng.randn(cfg.num_patches, cfg.d_model) * 0.02).astype(
+            np.float32)
+        images.append((pe, (hashlib.sha256(pe.tobytes()).hexdigest(),)))
+    prompts = [pseudo + list(rng.randint(10, cfg.vocab_size, prompt_len))
+               for _ in range(batch)]
+    res = SimpleNamespace(base_ids=[], eval_ids=[], other_ids=[])
+    for x, (pe, salt) in zip(prompts, images):
+        res.base_ids.append(eng.submit(x, gen_len, prefix_embeds=pe,
+                                       salt=salt))
+    eng.run_until_idle()
+    for rid, x, (pe, salt) in zip(list(res.base_ids), prompts, images):
+        y = eng.request(rid).output_tokens
+        for name in adapter_names:
+            inv = list(eng.adapters[name].spec.invocation_tokens or ())
+            res.eval_ids.append(eng.submit(x + y + inv, eval_len,
+                                           adapter_name=name,
+                                           prefix_embeds=pe, salt=salt))
+    eng.run_until_idle()
+    pe, salt = images[-1]
+    res.other_ids.append(eng.submit(prompts[0], gen_len, prefix_embeds=pe,
+                                    salt=salt))
+    res.base_ids += res.other_ids
+    eng.run_until_idle()
+    return res
+
+
 def run_pipeline(torch, eng, adapter_names=("eval",), **kw):
+    """The base → adapter pipeline on ``eng`` (on images for a vision
+    model), each engine step timed by the host clock."""
     from repro_torch.serving import pipelines
     step_ms = []
     orig = eng.step
@@ -1120,8 +1272,9 @@ def run_pipeline(torch, eng, adapter_names=("eval",), **kw):
         return out
 
     eng.step = timed_step
-    res = pipelines.base_adapter(eng, adapter_names=list(adapter_names),
-                                 **kw)
+    traffic = vision_traffic if eng.cfg.frontend == "vision" \
+        else pipelines.base_adapter
+    res = traffic(eng, adapter_names=list(adapter_names), **kw)
     if eng.runner.device.type == "cuda":
         torch.cuda.synchronize()
     return res, step_ms
@@ -1133,13 +1286,16 @@ PIPE = dict(prompt_len=256, gen_len=32, eval_len=8, batch=4, seed=0)
 LONG_PIPE = dict(prompt_len=4608, gen_len=16, eval_len=8, batch=1, seed=0)
 
 
-def main_path(torch, arch: str, profile: bool, long: bool = False):
+def main_path(torch, arch: str, profile: bool, long: bool = False,
+              num_layers: int = 0):
     """Serve ``arch`` at full width (random weights from a seed, one
-    rank-32 aLoRA adapter) through the base → aLoRA pipeline (``PIPE``)
-    and hold the launch counts, the reuse and the drained pools to what
-    the path must give; with ``long``, then serve ``LONG_PIPE`` on the
-    same engine (every eval request reusing ≥ 4,096 tokens); with
-    ``profile``, then time a decode window."""
+    rank-32 aLoRA adapter; ``num_layers`` of its layers where given)
+    through the base → aLoRA pipeline (``PIPE``; on images of its
+    ``num_patches`` patches for a vision model) and hold the launch
+    counts, the reuse (≥ 256 tokens, plus the patches) and the drained
+    pools to what the path must give; with ``long``, then serve
+    ``LONG_PIPE`` on the same engine (every eval request reusing ≥ 4,096
+    tokens); with ``profile``, then time a decode window."""
     from repro_torch.common import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.core.alora import AdapterSpec, init_adapter_weights
@@ -1147,6 +1303,8 @@ def main_path(torch, arch: str, profile: bool, long: bool = False):
     from repro_torch.serving import Engine
 
     cfg = get_config(arch)
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(gen, cfg, device="cuda")
@@ -1156,13 +1314,19 @@ def main_path(torch, arch: str, profile: bool, long: bool = False):
     torch.cuda.synchronize()
     weights_gb = sum(t.numel() * t.element_size() for t in
                      tree_leaves(params)) / 1e9
-    print(f"  {cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters "
-          f"({weights_gb:.2f} GB), {torch.cuda.memory_allocated() / 1e9:.2f}"
-          f" GB on the card, set-up {time.perf_counter() - t0:.1f} s",
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"  {cfg.name} ({cfg.num_layers} layers): "
+          f"{cfg.param_count() / 1e9:.2f} B parameters ({weights_gb:.2f} GB"
+          f"), {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card of "
+          f"{card_gb:.2f}, set-up {time.perf_counter() - t0:.1f} s",
           flush=True)
-    summary = serve_pipeline(torch, eng, cfg, PIPE, min_hits=256)
-    summary.update(arch=arch, weights_gb=weights_gb,
-                   window=cfg.sliding_window)
+    summary = serve_pipeline(torch, eng, cfg, PIPE,
+                             min_hits=256 + cfg.num_patches)
+    summary.update(arch=arch, weights_gb=weights_gb, num_layers=cfg.num_layers,
+                   params=cfg.param_count(),
+                   active_params=cfg.active_param_count(),
+                   memory_gb=torch.cuda.memory_allocated() / 1e9,
+                   card_memory_gb=card_gb, window=cfg.sliding_window)
     if long:
         print(f"  {cfg.name} again with {LONG_PIPE}", flush=True)
         summary["long"] = serve_pipeline(torch, eng, cfg, LONG_PIPE,
@@ -1178,11 +1342,32 @@ def main_path(torch, arch: str, profile: bool, long: bool = False):
               flush=True)
         summary["host_embed_upload_ms"] = up
     if profile:
-        summary["decode_profile"] = profile_decode(torch, eng, cfg)
+        dp = summary["decode_profile"] = profile_decode(torch, eng, cfg)
         # the least time a decode step could take: every weight read
         # once at the HBM rate
-        summary["decode_profile"]["weight_read_bound_ms"] = \
-            bound(weights_gb * 1e9, 0, "bfloat16")[0]
+        dp["weight_read_bound_ms"] = bound(weights_gb * 1e9, 0,
+                                           "bfloat16")[0]
+        if cfg.moe is not None:
+            # masked dense reads every expert; the routes need only the
+            # experts they touch, with every other weight
+            m = cfg.moe
+            expert = (3 if cfg.activation == "swiglu" else 2) \
+                * cfg.d_model * m.d_ff * 2
+            rest = weights_gb * 1e9 - cfg.num_layers * m.num_experts * expert
+            dp["routed_bound_ms"] = bound(
+                rest + dp["experts_touched_per_step"] * expert, 0,
+                "bfloat16")[0]
+            dp["expert_gb_per_step"] = cfg.num_layers * m.num_experts \
+                * expert / 1e9
+            dp["routed_expert_gb_per_step"] = \
+                dp["experts_touched_per_step"] * expert / 1e9
+            print(f"  decode bounds: weight read "
+                  f"{dp['weight_read_bound_ms']:.3f} ms (every expert, "
+                  f"{dp['expert_gb_per_step']:.2f} GB of "
+                  f"them), routed {dp['routed_bound_ms']:.3f} ms "
+                  f"({dp['experts_touched_per_step']:.1f} of "
+                  f"{cfg.num_layers * m.num_experts} layer-experts touched, "
+                  f"{dp['routed_expert_gb_per_step']:.2f} GB)", flush=True)
     # the timed step wrapper refers back to the engine: collect the cycle
     # so the next model finds the card empty
     del eng, params, adapter
@@ -1233,6 +1418,11 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
           flush=True)
     print("  launches: " + ", ".join(f"{k} {v}" for k, v in counts.items()),
           flush=True)
+    other = [eng.request(i).n_cache_hit_tokens
+             for i in getattr(res, "other_ids", ())]
+    if other:
+        print("  another image under the same pseudo-tokens: "
+              f"n_cache_hit_tokens {other}", flush=True)
     adapted = [(T, n) for T, n, _ in shapes if n]
     share = {"steps": len(shapes), "steps_with_adapted_tokens":
              len(adapted), "tokens": sum(T for T, _, _ in shapes),
@@ -1250,6 +1440,8 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
             fail(f"request {rid}: tokens {o} are not {want} ids < {vpad}")
     if min(hits) < min_hits:
         fail(f"an eval request reused fewer than {min_hits} tokens: {hits}")
+    if any(other):
+        fail(f"a request on another image reused {other} tokens")
     Ls = cfg.pattern().count(SSM)
     La = cfg.num_layers - Ls
     if Ls and not all(reused):
@@ -1280,7 +1472,7 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
     phase_ms = {k: statistics.mean(v) for k, v in phases.items()}
     print("  mean host ms per phase: " + ", ".join(
         f"{k} {v:.3f}" for k, v in phase_ms.items()), flush=True)
-    return {"pipeline": pipe, "steps": steps,
+    return {"pipeline": pipe, "steps": steps, "other_image_hits": other,
             "step_ms_mean": statistics.mean(step_ms),
             "step_ms_median": statistics.median(step_ms),
             "tokens_emitted": emitted, "eval_cache_hits": hits,
@@ -1294,10 +1486,47 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
             "adapted": share, "phase_ms": phase_ms}
 
 
+@contextlib.contextmanager
+def recorded_routes(torch):
+    """Record each MoE router call while the block runs: its expert
+    indices and its smallest top-k margin (k-th gate minus the (k+1)-th,
+    over the call's rows, padded rows included), as device tensors."""
+    from repro_torch.models import moe
+    orig = moe.route
+    calls = []
+
+    def route(p, cfg, x, **kw):
+        out = orig(p, cfg, x, **kw)
+        k = cfg.moe.experts_per_token
+        g = torch.softmax(x.float() @ p["router"], -1).topk(k + 1).values
+        calls.append((out[1], (g[..., k - 1] - g[..., k]).min()))
+        return out
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = orig
+
+
+def expert_copies(prof, cfg):
+    """The copies under ``prof`` of a tensor shaped as an expert's weight
+    or a layer's expert stack: (input shape, calls)."""
+    m, d = cfg.moe, cfg.d_model
+    shapes = {(d, m.d_ff), (m.d_ff, d), (m.num_experts, d, m.d_ff),
+              (m.num_experts, m.d_ff, d)}
+    return [(str(e.input_shapes), e.count)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in ("aten::copy_", "aten::clone")
+            and any(tuple(sh) in shapes for sh in e.input_shapes)]
+
+
 def profile_decode(torch, eng, cfg, n_steps: int = 8):
     """Where a steady decode step's time goes: 4 running requests with
     256-token contexts, n_steps timed plainly, then n_steps under
-    torch.profiler for the device time by kernel."""
+    torch.profiler for the device time by kernel; on a MoE stack, no step
+    may copy an expert's weights, and n_steps more record the experts
+    the routes touch."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import SSM
@@ -1305,7 +1534,7 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
     rng = np.random.RandomState(1)
     for _ in range(4):
         eng.submit(list(rng.randint(10, cfg.vocab_size, 256)),
-                   3 * n_steps + 8)
+                   4 * n_steps + 8)
     for _ in range(64):                 # admission + prefill
         eng.step()
         if eng.running and not eng.waiting and not eng.last_step_tokens[1]:
@@ -1321,6 +1550,20 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
+    touched = None
+    if cfg.moe is not None:
+        copies = expert_copies(prof, cfg)
+        if copies:
+            fail(f"a decode step copies expert weights: {copies}")
+        print("  no copy of an expert weight or stack in the profiled "
+              "steps", flush=True)
+        with recorded_routes(torch) as calls:
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+        # distinct experts per layer call, summed over a step's layers
+        touched = sum(len(set(i.flatten().tolist())) for i, _ in calls) \
+            / n_steps
     eng.run_until_idle()
 
     def dev_us(e):
@@ -1387,6 +1630,7 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
            "attention_share_of_busy": attn_ms / busy_ms if busy_ms else None,
            "scan_state_write_bytes_per_step": state_bytes,
            "host_us_per_eager_launch": launch_us,
+           "experts_touched_per_step": touched,
            "top_device_ms_per_step": dict(top_dev),
            "copy_device_ms_per_step_by_shape": dict(top_copies),
            "top_host_ms_per_step_profiled": {
@@ -1417,7 +1661,9 @@ def parity(torch, arch: str, prompt_len: int = 40):
     device slot: the same weights and pipeline on the card and on the CPU
     give identical tokens, prefix-cache hits (KV blocks and state
     snapshots), ``state_reused`` and adapter evictions.  (The reduced
-    starcoder2 is given prompts longer than its 128-token window.)"""
+    starcoder2 is given prompts longer than its 128-token window; the
+    reduced phi-3-vision serves on images of its 16 patches; the MoE
+    models report their routes' smallest top-k margin.)"""
     from repro_torch.configs import get_reduced
     from repro_torch.core.alora import AdapterSpec, init_adapter_weights
     from repro_torch.models.model import init_params
@@ -1432,13 +1678,16 @@ def parity(torch, arch: str, prompt_len: int = 40):
                  init_adapter_weights(gen, cfg, 8, device="cpu")),
                 (AdapterSpec("lora", 8, None),
                  init_adapter_weights(gen, cfg, 8, device="cpu"))]
-    runs = {}
+    runs, margins = {}, {}
     for device in ("cuda", "cpu"):
         eng = Engine(cfg, params, device=device, adapters=adapters,
                      engine_cfg=EngineConfig(adapter_slots=1))
-        res, _ = run_pipeline(torch, eng, adapter_names=("eval", "lora"),
-                              prompt_len=prompt_len, gen_len=12, eval_len=6,
-                              batch=3, seed=3)
+        with recorded_routes(torch) as calls:
+            res, _ = run_pipeline(torch, eng, adapter_names=("eval", "lora"),
+                                  prompt_len=prompt_len, gen_len=12,
+                                  eval_len=6, batch=3, seed=3)
+        if calls:
+            margins[device] = min(float(m) for _, m in calls)
         reqs = [eng.request(i) for i in res.base_ids + res.eval_ids]
         runs[device] = dict(
             tokens=[r.output_tokens for r in reqs],
@@ -1458,7 +1707,19 @@ def parity(torch, arch: str, prompt_len: int = 40):
           flush=True)
     if cfg.ssm is not None and not any(r["state_reused"]):
         fail(f"{arch}: no request restored a state snapshot")
-    return {k: r[k] for k in ("kv_hits", "state_hits", "evictions")}
+    if margins:
+        # the card's and the CPU's float32 router logits differ in their
+        # order of sums: a route can flip only where this is near 1e-7
+        print(f"  smallest top-{cfg.moe.experts_per_token} margin of the "
+              f"run's routes: card {margins['cuda']:.3e}, CPU "
+              f"{margins['cpu']:.3e}", flush=True)
+    if cfg.frontend == "vision":
+        print(f"  {cfg.num_patches}-patch image prefix on every base and "
+              "eval request", flush=True)
+    out = {k: r[k] for k in ("kv_hits", "state_hits", "evictions")}
+    if margins:
+        out["min_topk_margin"] = margins
+    return out
 
 
 def bench_path(torch):
@@ -1584,7 +1845,8 @@ def main() -> None:
     cfgs = {"granite": get_config("granite-3.2-8b"),
             "mamba2": get_config("mamba2-2.7b"),
             "zamba2": get_config("zamba2-2.7b"),
-            **{k: get_config(a) for k, a in zip(DENSE, DENSE_ARCHS)}}
+            **{k: get_config(a) for k, a in zip(DENSE + MOE_VLM,
+                                                DENSE_ARCHS + MOE_VLM_ARCHS)}}
     cfg = cfgs["granite"]
     gen = torch.Generator().manual_seed(0)
     timer = Timer("cuda")
@@ -1595,6 +1857,7 @@ def main() -> None:
     scan = check_ssd_scan(torch, timer, gen)
     scan_edges = check_scan_edges(torch, gen)
     edges = check_bench_edges(torch)
+    moe_layer = check_moe(torch, cfgs, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -1606,11 +1869,15 @@ def main() -> None:
         mp[arch] = main_path(torch, arch,
                              profile=arch != "zamba2-2.7b",
                              long=arch == "starcoder2-3b")
+    for arch in MOE_VLM_ARCHS:
+        print(f" [3] {arch}", flush=True)
+        mp[arch] = main_path(torch, arch, profile=True, num_layers=(
+            PHIMOE_LAYERS if arch == "phi3.5-moe-42b-a6.6b" else 0))
 
     print("[4] parity, reduced fp32, card vs CPU", flush=True)
     par = {arch: parity(torch, arch)
            for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
-                        *DENSE_ARCHS[:3])}
+                        *DENSE_ARCHS[:3], *MOE_VLM_ARCHS)}
     # past the reduced starcoder2's 128-token window
     par["starcoder2-3b"] = parity(torch, "starcoder2-3b", prompt_len=150)
     par["slot_rank"] = slot_rank_card(torch)
@@ -1665,6 +1932,18 @@ def main() -> None:
             decode_attention_device_ms_per_step_dense={
                 a: mp[a]["decode_profile"]["attention_device_ms_per_step"]
                 for a in DENSE_ARCHS},
+            moe_vlm={key: {k: v for k, v in attn[key].items()
+                           if k != "bytes" and k != "ops"}
+                     for key in attn if key.split("_")[0] in NEW_ATTN},
+            launches_moe_vlm={
+                a: mp[a]["launches"]["ragged_paged_attention"]
+                for a in MOE_VLM_ARCHS},
+            launches_per_step_moe_vlm={
+                a: mp[a]["launches_per_step"]["ragged_paged_attention"]
+                for a in MOE_VLM_ARCHS},
+            decode_attention_device_ms_per_step_moe_vlm={
+                a: mp[a]["decode_profile"]["attention_device_ms_per_step"]
+                for a in MOE_VLM_ARCHS},
             edge_rel_err=attn_edges),
         kernel_entry(
             "ragged_grouped_lora", "src/repro_torch/csrc/ragged_lora.cu",
@@ -1700,6 +1979,17 @@ def main() -> None:
                    for a in DENSE},
             launches_dense={a: mp[a]["launches"]["ragged_grouped_lora_qkv"]
                             for a in DENSE_ARCHS},
+            moe_vlm={a: {**pick(lora[f"bfloat16_{a}_qkv"], "d", "out",
+                                "max_abs_err", "rel_err", *timed),
+                         "decode4": pick(lora[f"bfloat16_{a}_qkv"]["decode4"],
+                                         "max_abs_err", "rel_err", *timed)}
+                     for a in NEW_ATTN},
+            launches_moe_vlm={
+                a: mp[a]["launches"]["ragged_grouped_lora_qkv"]
+                for a in MOE_VLM_ARCHS},
+            launches_per_step_moe_vlm={
+                a: mp[a]["launches_per_step"]["ragged_grouped_lora_qkv"]
+                for a in MOE_VLM_ARCHS},
             edge_rel_err=lora_edges),
         kernel_entry(
             "ragged_ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk.cu",
@@ -1731,7 +2021,8 @@ def main() -> None:
                     "granite_bf16_T512",
                     others=("granite_bf16_T128", "granite_f32_T128")),
     ]
-    print(json.dumps({"main_path": mp, "parity": par, "bench": bres,
+    print(json.dumps({"main_path": mp, "parity": par, "moe_layer": moe_layer,
+                      "bench": bres,
                       "bench_seconds": bsec, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,21 +6,22 @@ that ports it.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (granite3_8b, mamba2_2_7b, minitron_4b,
-                                  nemotron_4_15b, stablelm_12b,
+from repro_torch.configs import (granite3_8b, granite_moe_1b, mamba2_2_7b,
+                                  minitron_4b, nemotron_4_15b, phi3_5_moe,
+                                  phi3_vision_4_2b, stablelm_12b,
                                   starcoder2_3b, zamba2_2_7b)
 from repro_torch.configs.base import ATTN, SSM, ModelConfig  # noqa: F401
 
 _MODULES = {"granite-3.2-8b": granite3_8b, "mamba2-2.7b": mamba2_2_7b,
             "zamba2-2.7b": zamba2_2_7b, "stablelm-12b": stablelm_12b,
             "minitron-4b": minitron_4b, "nemotron-4-15b": nemotron_4_15b,
-            "starcoder2-3b": starcoder2_3b}
+            "starcoder2-3b": starcoder2_3b,
+            "granite-moe-1b-a400m": granite_moe_1b,
+            "phi3.5-moe-42b-a6.6b": phi3_5_moe,
+            "phi-3-vision-4.2b": phi3_vision_4_2b}
 
 # reference architectures still to be ported -> ROADMAP queue A item
-_NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": "A10b", "granite-moe-1b-a400m": "A10b",
-    "phi-3-vision-4.2b": "A10c", "whisper-large-v3": "A10d",
-}
+_NOT_PORTED = {"whisper-large-v3": "A10d"}
 
 
 def _module(arch_id: str):

@@ -89,19 +89,43 @@ class ModelConfig:
         return tuple([ATTN] * self.num_layers)
 
     def param_count(self) -> int:
-        """Total parameters of a dense, SSM or hybrid stack (embeddings
-        once, tied -> once; the reference's count without MoE and
+        """Total parameters of a dense, MoE, SSM or hybrid stack
+        (embeddings once, tied -> once; the reference's count without its
         encoder-decoder terms)."""
-        d, hd = self.d_model, self.head_dim
+        d = self.d_model
         emb = self.vocab_size * d
         n = emb if self.tie_embeddings else 2 * emb
-        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
-            + self.num_heads * hd * d
-        mlp = (3 if self.activation == "swiglu" else 2) * d * self.d_ff
+        attn, mlp = self._attn_params(), self._mlp_params()
         for kind in self.pattern():
             n += attn + mlp if kind == ATTN else self._ssm_params()
         n += (self.num_layers * 2 + 1) * d
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the k routed experts and
+        the router in place of every expert; the reference's count)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        n_attn = self.pattern().count(ATTN)
+        routed = 3 * self.d_model * m.d_ff * m.experts_per_token \
+            + self.d_model * m.num_experts
+        return self.param_count() - n_attn * (self._mlp_params() - routed)
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+            + self.num_heads * hd * d
+
+    def _mlp_params(self) -> int:
+        """One MLP sublayer: (3 if swiglu else 2) weight matrices, per
+        expert and with the router for MoE."""
+        gate_mult = 3 if self.activation == "swiglu" else 2
+        if self.moe is not None:
+            m = self.moe
+            return m.num_experts * gate_mult * self.d_model * m.d_ff \
+                + self.d_model * m.num_experts
+        return gate_mult * self.d_model * self.d_ff
 
     def _ssm_params(self) -> int:
         s = self.ssm

@@ -1,14 +1,16 @@
 """Model assembly — the counterpart of the reference's
-``repro/models/model.py`` for dense decoder stacks, pure SSM stacks
-(mamba2) and periodic hybrids (zamba2: 5 SSM + 1 attention layer per
-period).
+``repro/models/model.py`` for dense and mixture-of-experts decoder
+stacks (a vision prefix enters as prompt embeddings, in the runner),
+pure SSM stacks (mamba2) and periodic hybrids (zamba2: 5 SSM + 1
+attention layer per period).
 
 Parameters are a plain dictionary::
 
     {"embed": {"tok": (Vpad, d)[, "unembed": (d, Vpad)]},
      "final_norm": (d,),
      "layers": [{"ln1", "attn": {"wq","wk","wv","wo"}, "ln2",
-                 "mlp": {"w_up","w_down"[,"w_gate" (swiglu)]}}
+                 "mlp": {"w_up","w_down"[,"w_gate" (swiglu)]}
+                        | "moe": {"router", "w_up", "w_down"[, "w_gate"]}}
                 | {"ln", "ssm": {"in_z", "in_xbc", ...}},  # SSM
                 ...]}
 
@@ -27,6 +29,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ATTN, SSM, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_ssm
 
 Params = Dict[str, Any]
@@ -42,9 +45,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if SSM in kinds and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: SSM layers need an SSMConfig")
     for what, present, item in (
-            ("mixture-of-experts", cfg.moe is not None, "A10b"),
-            (f"the {cfg.frontend} frontend", cfg.frontend != "none",
-             "A10c" if cfg.frontend == "vision" else "A10d"),
+            (f"the {cfg.frontend} frontend",
+             cfg.frontend not in ("none", "vision"), "A10d"),
             ("encoder-decoder", cfg.is_encoder_decoder, "A10d")):
         if present:
             raise NotImplementedError(
@@ -84,7 +86,7 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                 device="cuda") -> Params:
     """Random weights with the reference's shapes and standard deviations
-    (``init_params``/``init_attn``/``init_mlp``/``init_ssm``/
+    (``init_params``/``init_attn``/``init_mlp``/``init_moe``/``init_ssm``/
     ``init_embeddings``), drawn
     from ``generator``, which must live on ``device``.  The values differ
     from the reference's ``jax.random`` streams; tests that compare the
@@ -111,19 +113,22 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
             layers.append({"ln": ones(),
                            "ssm": init_ssm(generator, cfg, dtype, dev)})
             continue
-        mlp = {"w_up": normal((d, cfg.d_ff), std),
-               "w_down": normal((cfg.d_ff, d), out_std)}
-        if cfg.activation == "swiglu":      # gated: the reference's init_mlp
-            mlp["w_gate"] = normal((d, cfg.d_ff), std)
-        layers.append({
+        layer = {
             "ln1": ones(),
             "attn": {"wq": normal((d, H * hd), std),
                      "wk": normal((d, KV * hd), std),
                      "wv": normal((d, KV * hd), std),
                      "wo": normal((H * hd, d), out_std)},
             "ln2": ones(),
-            "mlp": mlp,
-        })
+        }
+        if cfg.moe is not None:
+            layer["moe"] = init_moe(generator, cfg, dtype, dev)
+        else:
+            layer["mlp"] = {"w_up": normal((d, cfg.d_ff), std),
+                            "w_down": normal((cfg.d_ff, d), out_std)}
+            if cfg.activation == "swiglu":  # gated: the reference's init_mlp
+                layer["mlp"]["w_gate"] = normal((d, cfg.d_ff), std)
+        layers.append(layer)
     return {"embed": embed, "final_norm": ones(), "layers": layers}
 
 
@@ -136,9 +141,12 @@ def iter_layers(params: Params, cfg: ModelConfig
 
 def mlp_sublayer(lp: Params, cfg: ModelConfig, x: torch.Tensor
                  ) -> torch.Tensor:
-    """Dense MLP sublayer with its residual.  (The reference also returns
-    an MoE auxiliary loss, which a dense stack does not have.)"""
+    """MLP or MoE sublayer with its residual (the reference's dispatch on
+    ``cfg.moe``).  The reference also returns the MoE load-balance loss,
+    which serving drops; it is not computed here."""
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + moe_apply(lp["moe"], cfg, h)[0]
     return x + L.mlp_apply(lp["mlp"], cfg, h)
 
 

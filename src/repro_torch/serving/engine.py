@@ -1,7 +1,8 @@
 """The serving engine: scheduler + continuous batching + chunked prefill +
 cross-model prefix caching (the paper's system, §3), ported from the
-reference's ``repro/serving/engine.py`` for attention, SSM and hybrid
-stacks.
+reference's ``repro/serving/engine.py`` for attention (dense or
+mixture-of-experts MLPs, optionally behind an image-patch prefix), SSM
+and hybrid stacks.
 
 Request flow (paper Fig. 5): submit → [queue] → admission (prefix-cache
 match on base-aligned block hashes and SSM state snapshots) → chunked
@@ -226,13 +227,19 @@ class Engine:
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                adapter_name: Optional[str] = None,
                arrival_time: Optional[float] = None,
+               prefix_embeds: Optional[np.ndarray] = None,
                salt: Tuple = ()) -> int:
+        """Queue a request.  ``prefix_embeds`` (P, d): image-patch
+        embeddings that take the place of the prompt's leading P rows
+        (the prompt holds P pseudo-token ids there for hashing); give the
+        image's content digest as ``salt`` so that its blocks are reused
+        only for the same image."""
         req = Request(req_id=self._next_id,
                       prompt=list(map(int, prompt)),
                       max_new_tokens=max_new_tokens,
                       arrival_time=self.clock if arrival_time is None
                       else arrival_time,
-                      salt=salt)
+                      prefix_embeds=prefix_embeds, salt=salt)
         self._next_id += 1
         if adapter_name is not None:
             pool = self.adapter_pool
@@ -337,7 +344,8 @@ class Engine:
                                      self.clock)
         # prompt embeddings kept on the host, so each step's assembly
         # packs rows with slice copies (one device→host copy, logged)
-        req.input_embeds = self.runner.build_input_embeds(req.prompt)
+        req.input_embeds = self.runner.build_input_embeds(req.prompt,
+                                                          req.prefix_embeds)
         req.state = State.PREFILL
         self.running.append(req)
         return True

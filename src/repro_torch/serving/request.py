@@ -1,5 +1,6 @@
 """Request lifecycle (paper Table 2 / Fig. 5), a copy of the reference's
-``repro/serving/request.py`` for text requests.
+``repro/serving/request.py`` for text requests and requests with an
+image-patch prefix.
 
 A request moves through queue → prefill → decode → done; the boundary
 timestamps define the paper's metrics:
@@ -16,6 +17,8 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.alora import AdapterSpec
 from repro_torch.core.block_hash import AdapterKey, BlockHash
@@ -39,7 +42,8 @@ class Request:
     adapter_uid: Optional[str] = None
     adapter_slot: int = 0                   # device slot WHILE ADMITTED
     arrival_time: float = 0.0
-    salt: Tuple = ()                        # cache salt
+    prefix_embeds: Optional[np.ndarray] = None   # vlm: (P, d) patch embeds
+    salt: Tuple = ()                        # cache salt (content digest)
     state: State = State.QUEUED
     t_prefill_start: Optional[float] = None
     t_decode_start: Optional[float] = None

@@ -1,6 +1,6 @@
 """Paged model runner — the mixed path of the reference's
-``repro/serving/runner.py``, eager PyTorch, for attention, SSM and
-hybrid stacks.
+``repro/serving/runner.py``, eager PyTorch, for attention (dense or
+mixture-of-experts MLPs), SSM and hybrid stacks.
 
 ``submit_batch`` runs ONE mixed step over every scheduled token (decode
 singletons and prefill chunks packed along one token axis):
@@ -12,7 +12,7 @@ singletons and prefill chunks packed along one token axis):
      LoRA delta over the step's active adapter slots → RoPE; the K/V
      rows are written into the paged pools in place; ragged paged
      attention over each token's own request's blocks; ``out_project``,
-     then the MLP sublayer;
+     then the MLP (or MoE) sublayer;
   4. per SSM layer: rmsnorm → ``ssd_ragged_forward``: the input
      projection with its adapter delta, the ragged causal conv and the
      ragged SSD scan, each request's live state gathered at its segment
@@ -248,15 +248,29 @@ class ModelRunner:
         self.tok_buf = torch.zeros((rcfg.max_running,), dtype=torch.int32,
                                    device=dev)
 
-    def build_input_embeds(self, prompt: List[int]) -> np.ndarray:
+    def build_input_embeds(self, prompt: List[int],
+                           prefix_embeds: Optional[np.ndarray] = None
+                           ) -> np.ndarray:
         """A request's prompt embeddings on the host (float32), built once
         at admission so every later assembly packs rows with slice
-        copies.  The device→host copy is logged under "admit"."""
+        copies.  The device→host copy is logged under "admit".
+
+        ``prefix_embeds`` (P, d), a vision request's patch embeddings,
+        replace the leading P rows (the prompt's pseudo-tokens hash them);
+        a prompt shorter than P gets the P patch rows alone, as in the
+        reference.  The patches are rounded to the model dtype first, so
+        that after the step's cast they equal the reference's
+        ``pe.astype(emb.dtype)``."""
         ids = torch.as_tensor(prompt, dtype=torch.int64, device=self.device)
         emb = torch.index_select(self.params["embed"]["tok"], 0, ids)
         out = emb.float().cpu().numpy()
         log_d2h(self.d2h_fetches, int(out.size), str(out.dtype), "admit",
                 self.tracer)
+        if prefix_embeds is not None:
+            pe = torch.as_tensor(np.asarray(prefix_embeds)).to(
+                emb.dtype).float().numpy()
+            out = np.concatenate([pe, out[len(pe):]], axis=0) \
+                if len(prompt) >= pe.shape[0] else pe
         return out
 
     # ------------------------------------------------------------------

@@ -12,7 +12,6 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.configs.base import MoEConfig
 from repro_torch.core.alora import init_adapter_weights
 from repro_torch.models.model import check_supported, init_params
 from repro_torch.serving import Engine, EngineConfig
@@ -22,12 +21,15 @@ from repro_torch.serving.runner import ModelRunner, RunnerConfig
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-# the SSM and kernel-bench slices' modules, which the import guard must
+# the modules of the later slices, which the import guard must
 # load
 NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.configs.zamba2_2_7b",
                "repro_torch.kernels.ssd_chunk", "repro_torch.models.ssm",
-               "repro_torch.kernels.alora_qkv", "repro_torch.kernels.bench")
+               "repro_torch.kernels.alora_qkv", "repro_torch.kernels.bench",
+               "repro_torch.models.moe", "repro_torch.configs.phi3_5_moe",
+               "repro_torch.configs.granite_moe_1b",
+               "repro_torch.configs.phi3_vision_4_2b")
 
 
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
@@ -109,25 +111,43 @@ def test_sequential_mode_raises_naming_roadmap_item(small):
                engine_cfg=EngineConfig(execution_mode="sequential"))
 
 
-@pytest.mark.parametrize("arch,item", [("phi-3-vision-4.2b", "A10c"),
-                                       ("granite-moe-1b-a400m", "A10"),
-                                       ("whisper-large-v3", "A10"),
-                                       ("phi3.5-moe-42b-a6.6b", "A10")])
+@pytest.mark.parametrize("arch,item", [("whisper-large-v3", "A10")])
 def test_unported_configs_raise_naming_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         get_config(arch)
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"moe": MoEConfig(num_experts=4, experts_per_token=2, d_ff=64)},
-     "A10"),
-    ({"is_encoder_decoder": True}, "A10"),
-    ({"frontend": "vision"}, "A10"),
-    ({"frontend": "audio"}, "A10")])
+    ({"is_encoder_decoder": True}, "A10d"),
+    ({"frontend": "audio"}, "A10d")])
 def test_unported_families_raise_at_construction(kw, item):
     cfg = get_reduced("granite-3.2-8b").replace(**kw)
     with pytest.raises(NotImplementedError, match=item):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "phi-3-vision-4.2b"])
+def test_moe_and_vision_configs_are_registered(arch):
+    cfg = get_config(arch)
+    assert cfg.name == arch
+    check_supported(cfg)
+    check_supported(get_reduced(arch))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "phi-3-vision-4.2b"])
+def test_moe_and_vision_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, arch):
+    cfg = get_reduced(arch)
+    params = init_params(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params)
 
 
 def test_ssm_stack_without_ssm_config_raises():
