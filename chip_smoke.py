@@ -17,11 +17,13 @@ Phases, each of which exits non-zero on failure:
    bfloat16, and in both types stablelm-12b's hd 160, nemotron-4-15b's
    G = 6 and starcoder2-3b's G = 12 under its 4096-token window on a
    T = 128 chunk at positions 4,480..4,607 over a 512-block table,
-   granite-moe-1b's G = 2 at hd 64 and phi-3-vision's MHA at hd 96, each
-   also at a T = 8 decode step; phi3.5-moe's widths are granite's), the
+   granite-moe-1b's G = 2 at hd 64, phi-3-vision's MHA at hd 96 and
+   whisper-large-v3's MHA 20/20/64, each also at a T = 8 decode step;
+   phi3.5-moe's widths are granite's), the
    grouped LoRA delta (its fused Q/K/V entry at granite's widths in
    float32 and bfloat16 and at zamba2's, the four dense families',
-   granite-moe's and phi-3-vision's in bfloat16, its one-pair entry at
+   granite-moe's, phi-3-vision's and whisper's (1280 -> 1280 x 3) in
+   bfloat16, its one-pair entry at
    the SSM input projections of mamba2 and zamba2 in bfloat16; timed at
    T = 128 and at a T = 4 decode step),
    the ragged SSD scan (float32, mamba2's N = 128 and zamba2's N = 64,
@@ -55,17 +57,24 @@ Phases, each of which exits non-zero on failure:
    its plain version that adds the experts one after another, bf16 at
    granite-moe's and phi3.5-moe's full widths, T = 128 and 4, timed
    beside the bytes of the experts its routes touch, of every expert, and
-   its operations;
+   its operations; then decode attention and the fused aLoRA projection
+   at the sequential step's serving shapes (bf16: granite's, zamba2's
+   and whisper's decode batch of 4; their Q projections and granite's
+   K/V width at T = 4, 64 and 128 on one rank-32 adapter slot);
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
    granite-3.2-8b (attention), mamba2-2.7b (pure SSM), zamba2-2.7b
    (hybrid), the dense families stablelm-12b, minitron-4b,
    nemotron-4-15b and starcoder2-3b, the MoE models granite-moe-1b-a400m
-   and phi3.5-moe (24 of its 32 layers: all 32 do not fit on the card)
-   and phi-3-vision-4.2b on images (576 patch embeddings under
+   and phi3.5-moe (24 of its 32 layers: all 32 do not fit on the card),
+   phi-3-vision-4.2b on images (576 patch embeddings under
    pseudo-tokens, then 256 text tokens; each eval reuses ≥ 832 tokens
-   and a request on another image none), one model on the card at a time,
+   and a request on another image none) and whisper-large-v3 on audio
+   (32 encoder and 32 decoder layers, 1500 frames of N(0, 0.02) per
+   request salted by their digest, encoded once at admission into the
+   request's run slot; each eval reuses ≥ 256 tokens and a request on
+   another audio none), one model on the card at a time,
    the SSM models reusing the base requests' state snapshots (one fused
    Q/K/V LoRA call and one attention call per attention layer and step,
    one in-projection call and one scan per SSM layer and step); each run
@@ -74,16 +83,30 @@ Phases, each of which exits non-zero on failure:
    window, and its eval request reuses ≥ 4,096 tokens; a decode-window
    profile follows every model but zamba2, beside the model's
    weight-read bound (on the MoE models also beside the bytes the step's
-   routes touch, and with no copy of an expert weight in the step);
+   routes touch, and with no copy of an expert weight in the step; on
+   whisper beside the bytes a decode step reads, its encoder K/V counted
+   in the model dtype, with no copy of encoder K/V in the step, and one
+   layer's cross-attention timed on the runner's float32 pools and on
+   model-dtype copies of the same values); granite-3.2-8b, zamba2-2.7b
+   and whisper-large-v3 then serve the same pipeline again on the same
+   weights through the sequential execution mode (one call per decode
+   batch and per prefill chunk): B4 once per attention layer of a decode call, B6 once per
+   Q/K/V projection, B2's one-pair entry once per SSM layer, counted, the
+   same reuse as the mixed run, the wall ms per call, and how many
+   generated tokens agree with the mixed run's (bf16, no limit);
 4. parity of the kernel path: the reduced float32 granite, mamba2,
    zamba2, dense families (minitron and nemotron at G = 3, starcoder2
    with 150-token prompts past its 128-token window), MoE models (with
-   their routes' smallest top-k margin) and phi-3-vision (on images of
-   its 16 patches) with two adapters
+   their routes' smallest top-k margin), phi-3-vision (on images of
+   its 16 patches) and whisper (on audio of its 64 frames), then granite,
+   mamba2, zamba2 and whisper in the sequential mode (with their logits'
+   smallest top-1/top-2 margin), with two adapters
    cycling through one device slot, the same
    weights and the same pipeline on the card and on the CPU — identical
    tokens, prefix-cache hits (KV blocks and state snapshots),
-   ``state_reused`` and adapter evictions; then a reduced granite engine
+   ``state_reused`` and adapter evictions, and each sequential run's
+   tokens, hits and ``state_reused`` equal to the mixed run's on the
+   card; then a reduced granite engine
    on the card asked for adapter slot rank 48 holds the LoRA kernel's
    bucket 64 and serves to the end, and one given a rank-300 adapter
    raises at construction;
@@ -227,6 +250,12 @@ MOE_VLM_ARCHS = ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
 # MHA 32/32/96; phi3.5-moe's attention (32/8/128) and Q/K/V widths (4096
 # -> 4096/1024/1024) are granite-3.2-8b's, whose cases cover it
 NEW_ATTN = ("granitemoe", "phivision")
+# the encoder-decoder: whisper-large-v3 (B1 at MHA 20/20/64, B2's fused
+# entry at 1280 -> 1280 x 3)
+ENCDEC = ("whisper",)
+ENCDEC_ARCH = "whisper-large-v3"
+# the models served again through the sequential execution mode
+SEQ_ARCHS = ("granite-3.2-8b", "zamba2-2.7b", ENCDEC_ARCH)
 # phi3.5-moe on one 80 GB card: 24 of its 32 layers (all 32 are 83.7 GB
 # of bf16 weights)
 PHIMOE_LAYERS = 24
@@ -241,8 +270,9 @@ def check_attention(torch, cfgs, timer, gen):
     48, KV 8: G 6), starcoder2's (H 24, KV 2: G 12, on a T = 128 chunk
     at positions 4,480..4,607 under its 4096-token window; table of 512
     blocks, 32 splits), granite-moe's (H 16, KV 8, hd 64: G 2) and
-    phi-3-vision's (MHA: H = KV = 32, hd 96).  Each of those five is also
-    checked and timed at a T = 8 decode step.  Results are keyed
+    phi-3-vision's (MHA: H = KV = 32, hd 96) and whisper's decoder (MHA:
+    H = KV = 20, hd 64).  Each of those six is also checked and timed at
+    a T = 8 decode step.  Results are keyed
     "float32", "bfloat16" (granite), "zamba2_bfloat16" and
     "{family}_{dtype}"."""
     import torch.nn.functional as F
@@ -253,7 +283,7 @@ def check_attention(torch, cfgs, timer, gen):
     cases = [("float32", "granite", "float32"),
              ("bfloat16", "granite", "bfloat16"),
              ("zamba2_bfloat16", "zamba2", "bfloat16")] + [
-        (f"{arch}_{dt}", arch, dt) for arch in DENSE_ATTN + NEW_ATTN
+        (f"{arch}_{dt}", arch, dt) for arch in DENSE_ATTN + NEW_ATTN + ENCDEC
         for dt in ("float32", "bfloat16")]
     for key, arch, dtype_name in cases:
         cfg = cfgs[arch]
@@ -314,11 +344,11 @@ def check_attention(torch, cfgs, timer, gen):
         if key == "float32":
             entry.update(window=WINDOW, max_abs_err_window=err_w,
                          row_rel_err_window=row_rel_w)
-        if dtype_name == "bfloat16" or arch in DENSE_ATTN + NEW_ATTN:
+        if dtype_name == "bfloat16" or arch in DENSE_ATTN + NEW_ATTN + ENCDEC:
             entry.update(time_attention(torch, F, timer, a, args, dtype_name,
                                         ragged_paged_attention,
                                         ragged_paged_attention_ref))
-        if key == "bfloat16" or arch in DENSE_ATTN + NEW_ATTN:
+        if key == "bfloat16" or arch in DENSE_ATTN + NEW_ATTN + ENCDEC:
             args8 = (d8["q"], d8["k_pool"], d8["v_pool"], d8["block_tables"],
                      d8["req_rows"], d8["q_lens"])
             got8 = ragged_paged_attention(*args8, window=window)
@@ -582,8 +612,8 @@ def check_attention_edges(torch, gen):
 def lora_cases(cfgs):
     """(key, dtype, d, out widths) of every shape the main paths give the
     grouped LoRA delta: granite's fused Q/K/V (float32 and bfloat16),
-    zamba2's, the four dense families', granite-moe's and phi-3-vision's
-    fused Q/K/V, and the SSM input projection of mamba2 and zamba2
+    zamba2's, the four dense families', granite-moe's, phi-3-vision's and
+    whisper's fused Q/K/V, and the SSM input projection of mamba2 and zamba2
     (bfloat16; one pair)."""
     from repro_torch.models.ssm import in_proj_dim
     g, m, z = cfgs["granite"], cfgs["mamba2"], cfgs["zamba2"]
@@ -593,7 +623,7 @@ def lora_cases(cfgs):
             for dt in ("float32", "bfloat16")] + [
         ("bfloat16_zamba2_qkv", "bfloat16", z.d_model, qkv(z))] + [
         (f"bfloat16_{a}_qkv", "bfloat16", cfgs[a].d_model, qkv(cfgs[a]))
-        for a in DENSE + NEW_ATTN] + [
+        for a in DENSE + NEW_ATTN + ENCDEC] + [
         (f"bfloat16_mamba2_in_proj_out{in_proj_dim(m)}", "bfloat16",
          m.d_model, (in_proj_dim(m),)),
         (f"bfloat16_zamba2_in_proj_out{in_proj_dim(z)}", "bfloat16",
@@ -1183,6 +1213,73 @@ def slot_rank_card(torch):
             "requests": len(lens), "rank_300": raised}
 
 
+def check_sequential_kernels(torch, cfgs, timer):
+    """Decode attention (B4) and the fused aLoRA projection (B6) at the
+    sequential step's serving shapes, bf16, against their plain versions,
+    timed beside their bounds and library yardsticks (SDPA over gathered
+    K/V; the base GEMM alone for B6, which no one library call computes):
+    granite's (GQA 32/8/128), zamba2's (MHA 32/32/80) and whisper's (MHA
+    20/20/64) decode batch of 4 (contexts 257-288, the pipeline's decode
+    positions, over a 32-block table) for B4, and for B6 their Q
+    projections (granite 4096 -> 4096, zamba2 2560 -> 2560, whisper 1280
+    -> 1280; zamba2's and whisper's K and V have the Q shape) and
+    granite's K/V width (4096 -> 1024), at a decode batch of 4 and
+    prefill chunks of 64 (the engine's chunk) and 128 tokens, one rank-32
+    adapter slot (the engine's pool) with half the rows on it.  Returns
+    {kernel/case: result}."""
+    from repro_torch.kernels import bench
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dt = torch.bfloat16
+    cases = []
+    for arch in ("granite", "zamba2", "whisper"):
+        c = cfgs[arch]
+        cases.append(bench.attention_case(
+            gen, "cuda", dt, B=4, H=c.num_heads, KV=c.num_kv_heads,
+            hd=c.head_dim, bs=16, lengths=[257, 270, 281, 288], nb=32,
+            window=0, name=f"{arch}_decode4"))
+        widths = [("q", c.num_heads * c.head_dim)] + (
+            [("kv", c.num_kv_heads * c.head_dim)] if arch == "granite"
+            else [])
+        for proj, out in widths:
+            for T in (4, 64, 128):
+                cases.append(bench.alora_case(
+                    gen, "cuda", dt, T=T, d=c.d_model, out=out, n=2, r=32,
+                    name=f"{arch}_{proj}_T{T}"))
+    res = {}
+    for case in cases:
+        kernel, plain = bench.WRAPPERS[case.kernel]
+        got = kernel(*case.args, **case.kwargs)
+        want = plain(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        r = bench.errors(got, want, case.per_row)
+        rel = r["row_rel_err"] if case.per_row else r["rel_err"]
+        key = f"{case.kernel}/{case.name}"
+        if not r["finite"] or rel > TOL["bfloat16"]:
+            fail(f"{key}: finite {r['finite']}, {rel} of max|plain| > "
+                 f"{TOL['bfloat16']}")
+        r.update(shape=case.shape, dtype="bfloat16", tol=TOL["bfloat16"],
+                 ms=timer(lambda: kernel(*case.args, **case.kwargs)),
+                 plain_ms=timer(lambda: plain(*case.args, **case.kwargs)),
+                 device_split_ms=bench.device_split(case, kernel, timer))
+        r["bound_ms"], r["bound_by"] = bench.bound_ms(case.nbytes, case.ops,
+                                                      dt)
+        name, factory = case.yardstick
+        r[name] = timer(factory())
+        r.setdefault("library_ms", None)
+        if case.kernel == "alora_qkv":
+            r["device_span_ms"] = bench.device_span(case, kernel, timer)
+        res[key] = r
+        print(f"  {key} ({case.shape}): {rel:.3e} of max|plain| (tol "
+              f"{TOL['bfloat16']}); kernel {r['ms']:.4f} ms (device "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          r["device_split_ms"].items())
+              + f"), plain {r['plain_ms']:.3f} ms, {name} {r[name]:.4f} "
+              f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+              flush=True)
+        del got, want
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the engine
 # ---------------------------------------------------------------------------
@@ -1258,9 +1355,51 @@ def vision_traffic(eng, *, adapter_names, prompt_len, gen_len, eval_len,
     return res
 
 
+def audio(rng, cfg):
+    """One request's (Se, d) frame embeddings, N(0, 0.02) from ``rng``,
+    as ``submit`` keywords with their digest as the cache salt."""
+    import hashlib
+    fr = (rng.randn(cfg.encoder_seq_len, cfg.d_model) * 0.02).astype(
+        np.float32)
+    return dict(frame_embeds=fr,
+                salt=(hashlib.sha256(fr.tobytes()).hexdigest(),))
+
+
+def audio_traffic(eng, *, adapter_names, prompt_len, gen_len, eval_len,
+                  batch, seed):
+    """The base → adapter pipeline on audio: each of ``batch`` prompts of
+    ``prompt_len`` tokens on its own audio's frames (salted with their
+    digest), each adapter's eval request x + y + its invocation tokens on
+    the same audio; then one base request with prompt 0 on another audio
+    (``other_ids``), which may reuse none of the first audio's blocks.
+    Returns the request ids as ``pipelines.base_adapter`` does, the other
+    request among the base ones."""
+    rng = np.random.RandomState(seed)
+    cfg = eng.cfg
+    auds = [audio(rng, cfg) for _ in range(batch + 1)]
+    prompts = [list(rng.randint(10, cfg.vocab_size, prompt_len))
+               for _ in range(batch)]
+    res = SimpleNamespace(base_ids=[], eval_ids=[], other_ids=[])
+    for x, a in zip(prompts, auds):
+        res.base_ids.append(eng.submit(x, gen_len, **a))
+    eng.run_until_idle()
+    for rid, x, a in zip(list(res.base_ids), prompts, auds):
+        y = eng.request(rid).output_tokens
+        for name in adapter_names:
+            inv = list(eng.adapters[name].spec.invocation_tokens or ())
+            res.eval_ids.append(eng.submit(x + y + inv, eval_len,
+                                           adapter_name=name, **a))
+    eng.run_until_idle()
+    res.other_ids.append(eng.submit(prompts[0], gen_len, **auds[-1]))
+    res.base_ids += res.other_ids
+    eng.run_until_idle()
+    return res
+
+
 def run_pipeline(torch, eng, adapter_names=("eval",), **kw):
     """The base → adapter pipeline on ``eng`` (on images for a vision
-    model), each engine step timed by the host clock."""
+    model, on audio for an encoder-decoder), each engine step timed by
+    the host clock."""
     from repro_torch.serving import pipelines
     step_ms = []
     orig = eng.step
@@ -1272,8 +1411,8 @@ def run_pipeline(torch, eng, adapter_names=("eval",), **kw):
         return out
 
     eng.step = timed_step
-    traffic = vision_traffic if eng.cfg.frontend == "vision" \
-        else pipelines.base_adapter
+    traffic = {"vision": vision_traffic, "audio": audio_traffic}.get(
+        eng.cfg.frontend, pipelines.base_adapter)
     res = traffic(eng, adapter_names=list(adapter_names), **kw)
     if eng.runner.device.type == "cuda":
         torch.cuda.synchronize()
@@ -1287,7 +1426,7 @@ LONG_PIPE = dict(prompt_len=4608, gen_len=16, eval_len=8, batch=1, seed=0)
 
 
 def main_path(torch, arch: str, profile: bool, long: bool = False,
-              num_layers: int = 0):
+              num_layers: int = 0, sequential: bool = False):
     """Serve ``arch`` at full width (random weights from a seed, one
     rank-32 aLoRA adapter; ``num_layers`` of its layers where given)
     through the base → aLoRA pipeline (``PIPE``; on images of its
@@ -1295,7 +1434,9 @@ def main_path(torch, arch: str, profile: bool, long: bool = False,
     counts, the reuse (≥ 256 tokens, plus the patches) and the drained
     pools to what the path must give; with ``long``, then serve
     ``LONG_PIPE`` on the same engine (every eval request reusing ≥ 4,096
-    tokens); with ``profile``, then time a decode window."""
+    tokens); with ``profile``, then time a decode window; with
+    ``sequential``, then serve ``PIPE`` again on the same weights through
+    ``execution_mode="sequential"`` (:func:`serve_sequential`)."""
     from repro_torch.common import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.core.alora import AdapterSpec, init_adapter_weights
@@ -1331,6 +1472,7 @@ def main_path(torch, arch: str, profile: bool, long: bool = False,
         print(f"  {cfg.name} again with {LONG_PIPE}", flush=True)
         summary["long"] = serve_pipeline(torch, eng, cfg, LONG_PIPE,
                                          min_hits=4096)
+        summary["long"].pop("outputs")
     if arch == "granite-3.2-8b":
         # the per-step host-embedding upload the assembly mirrors from
         # the reference: a (128, d) float32 pinned buffer, non_blocking
@@ -1347,6 +1489,35 @@ def main_path(torch, arch: str, profile: bool, long: bool = False,
         # once at the HBM rate
         dp["weight_read_bound_ms"] = bound(weights_gb * 1e9, 0,
                                            "bfloat16")[0]
+        if cfg.is_encoder_decoder:
+            # a decode step reads no encoder weight and no cross K/V
+            # projection; it reads the 4 requests' encoder K/V, whose
+            # values are in the model dtype (the pools hold them in
+            # float32: ``xkv_pool_gb``)
+            skip = {id(t) for t in tree_leaves(params["encoder"])} | {
+                id(lp["xattn"][k]) for lp in params["layers"]
+                for k in ("wk", "wv")}
+            step_bytes = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params)
+                             if id(t) not in skip)
+            elems = 4 * cfg.num_layers * 2 * cfg.num_kv_heads \
+                * cfg.encoder_seq_len * cfg.head_dim
+            xkv = elems * params["final_norm"].element_size()
+            dp["decode_read_bound_ms"] = bound(step_bytes + xkv, 0,
+                                               "bfloat16")[0]
+            dp["decode_read_gb"] = (step_bytes + xkv) / 1e9
+            dp["xkv_gb"] = xkv / 1e9
+            dp["xkv_pool_gb"] = elems * eng.runner.xk_pool.element_size() \
+                / 1e9
+            busy = dp["device_busy_ms"] or float("nan")
+            print(f"  decode read bound: {dp['decode_read_bound_ms']:.3f} ms "
+                  f"({step_bytes / 1e9:.2f} GB of decoder weights, "
+                  f"{xkv / 1e9:.2f} GB of the 4 requests' encoder K/V in "
+                  f"the model dtype; the pools hold them in "
+                  f"{dp['xkv_pool_gb']:.2f} GB); busy / bound "
+                  f"{busy / dp['decode_read_bound_ms']:.2f}",
+                  flush=True)
+            dp["cross_layouts"] = cross_layouts(torch, eng, cfg)
         if cfg.moe is not None:
             # masked dense reads every expert; the routes need only the
             # experts they touch, with every other weight
@@ -1368,9 +1539,21 @@ def main_path(torch, arch: str, profile: bool, long: bool = False,
                   f"({dp['experts_touched_per_step']:.1f} of "
                   f"{cfg.num_layers * m.num_experts} layer-experts touched, "
                   f"{dp['routed_expert_gb_per_step']:.2f} GB)", flush=True)
+    outputs = summary.pop("outputs")
     # the timed step wrapper refers back to the engine: collect the cycle
     # so the next model finds the card empty
-    del eng, params, adapter
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if sequential:
+        from repro_torch.serving import EngineConfig
+        eng = Engine(cfg, params, device="cuda",
+                     adapters=[(AdapterSpec("eval", 32, INV), adapter)],
+                     engine_cfg=EngineConfig(execution_mode="sequential"))
+        summary["sequential"] = serve_sequential(torch, eng, cfg, PIPE,
+                                                 summary, outputs)
+        del eng
+    del params, adapter
     gc.collect()
     torch.cuda.empty_cache()
     return summary
@@ -1421,7 +1604,7 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
     other = [eng.request(i).n_cache_hit_tokens
              for i in getattr(res, "other_ids", ())]
     if other:
-        print("  another image under the same pseudo-tokens: "
+        print(f"  another {cfg.frontend} under the same tokens: "
               f"n_cache_hit_tokens {other}", flush=True)
     adapted = [(T, n) for T, n, _ in shapes if n]
     share = {"steps": len(shapes), "steps_with_adapted_tokens":
@@ -1441,7 +1624,7 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
     if min(hits) < min_hits:
         fail(f"an eval request reused fewer than {min_hits} tokens: {hits}")
     if any(other):
-        fail(f"a request on another image reused {other} tokens")
+        fail(f"a request on another {cfg.frontend} reused {other} tokens")
     Ls = cfg.pattern().count(SSM)
     La = cfg.num_layers - Ls
     if Ls and not all(reused):
@@ -1465,6 +1648,17 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
     probe = eng.runner.host_bufs.take("probe", 1, np.int32)
     if not torch.from_numpy(probe).is_pinned():
         fail("host staging buffers are not pinned")
+    encodes = None
+    if cfg.is_encoder_decoder:
+        # written once per admission into the request's run slot, read in
+        # place by every step
+        encodes = eng.runner.call_counts["encode"]
+        per = 2 * La * cfg.num_kv_heads * cfg.encoder_seq_len \
+            * cfg.head_dim * 4
+        print(f"  encoder: {encodes} encode calls (one per admission), "
+              f"{per / 1e6:.1f} MB of float32 K/V written per call, 0 "
+              f"encoder K/V copies per step; pools "
+              f"{eng.runner.xk_pool.numel() * 8 / 1e9:.2f} GB", flush=True)
     phases = {}
     for kind, track, _, t0_, t1_, _, _ in eng.tracer.events:
         if kind == "span":
@@ -1473,6 +1667,7 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
     print("  mean host ms per phase: " + ", ".join(
         f"{k} {v:.3f}" for k, v in phase_ms.items()), flush=True)
     return {"pipeline": pipe, "steps": steps, "other_image_hits": other,
+            "outputs": outs, "encode_calls": encodes,
             "step_ms_mean": statistics.mean(step_ms),
             "step_ms_median": statistics.median(step_ms),
             "tokens_emitted": emitted, "eval_cache_hits": hits,
@@ -1484,6 +1679,133 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
             "launches": counts,
             "launches_per_step": {k: v / steps for k, v in counts.items()},
             "adapted": share, "phase_ms": phase_ms}
+
+
+def top2_margin(torch, logits) -> float:
+    """The smallest top-1 minus top-2 logit over the rows of ``logits``
+    (a greedy token flips only where this is near the rounding)."""
+    t = torch.as_tensor(logits).float()
+    top = torch.topk(t.reshape(-1, t.shape[-1]), 2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
+@contextlib.contextmanager
+def sequential_calls(torch, eng):
+    """Record each sequential device call of ``eng`` while the block
+    runs: its kind ("prefill_chunk" or "decode_batch"), its wall ms (the
+    call and the wait for its logits, as the engine waits) and its
+    logits' smallest top-1/top-2 margin."""
+    runner = eng.runner
+    calls = []
+
+    def wrap(name):
+        orig = getattr(runner, name)
+
+        def call(**kw):
+            t0 = time.perf_counter()
+            out = orig(**kw)
+            logits = out[0] if name == "prefill_chunk" else out
+            margin = top2_margin(torch, logits)
+            calls.append((name, (time.perf_counter() - t0) * 1e3, margin))
+            return out
+        return orig, call
+
+    saved = {}
+    for name in ("prefill_chunk", "decode_batch"):
+        saved[name], fn = wrap(name)
+        setattr(runner, name, fn)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(runner, name, fn)
+
+
+SEQ_KERNELS = ("paged_attention", "alora_qkv", "ragged_grouped_lora",
+               "ragged_paged_attention", "ragged_grouped_lora_qkv",
+               "ragged_ssd_chunk_scan")
+
+
+def serve_sequential(torch, eng, cfg, pipe, mixed, mixed_outputs):
+    """``pipe`` through the sequential execution mode (one device call per
+    decode batch and per prefill chunk), every kernel count set to 0 just
+    before and read just after: per call of either kind, one decode
+    attention (B4) per attention layer of a decode call, one fused aLoRA
+    projection (B6) per Q/K/V projection of an attention layer, one
+    grouped-delta call (B2, every slot active) per SSM layer, and no
+    launch of the mixed step's kernels; each eval reusing as many tokens
+    as in the mixed run ``mixed``.  Prints the wall ms per call, the
+    launches per call, and how many generated tokens agree with the mixed
+    run's (bf16: no limit on that count).  Returns the run's summary."""
+    from repro_torch.configs import SSM
+    c = counted()
+    for fn in c.values():
+        fn.launches = 0
+    with sequential_calls(torch, eng) as calls:
+        res, step_ms = run_pipeline(torch, eng, **pipe)
+    counts = {k: c[k].launches for k in SEQ_KERNELS}
+    n_pre = sum(1 for k, _, _ in calls if k == "prefill_chunk")
+    n_dec = len(calls) - n_pre
+    Ls = cfg.pattern().count(SSM)
+    La = cfg.num_layers - Ls
+    want = {"paged_attention": La * n_dec,
+            "alora_qkv": 3 * La * (n_pre + n_dec),
+            "ragged_grouped_lora": Ls * (n_pre + n_dec),
+            "ragged_paged_attention": 0, "ragged_grouped_lora_qkv": 0,
+            "ragged_ssd_chunk_scan": 0}
+    if counts != want:
+        fail(f"{cfg.name} sequential: launch counts {counts} != {want} for "
+             f"{n_pre} prefill and {n_dec} decode calls of {La} attention "
+             f"and {Ls} SSM layers")
+    if n_dec == 0 or (La and not counts["paged_attention"]):
+        fail(f"{cfg.name} sequential: no decode attention launched")
+    ids = res.base_ids + res.eval_ids
+    outs = [eng.request(i).output_tokens for i in ids]
+    hits = [eng.request(i).n_cache_hit_tokens for i in res.eval_ids]
+    if hits != mixed["eval_cache_hits"]:
+        fail(f"{cfg.name} sequential: eval reuse {hits} != the mixed run's "
+             f"{mixed['eval_cache_hits']}")
+    other = [eng.request(i).n_cache_hit_tokens
+             for i in getattr(res, "other_ids", ())]
+    if any(other):
+        fail(f"{cfg.name} sequential: another {cfg.frontend} reused "
+             f"{other} tokens")
+    if Ls and not all(eng.request(i).state_reused for i in res.eval_ids):
+        fail(f"{cfg.name} sequential: an eval did not restore a snapshot")
+    agree = sum(a == b for o, m in zip(outs, mixed_outputs)
+                for a, b in zip(o, m))
+    total = sum(len(o) for o in outs)
+    ms = {k: [t for n, t, _ in calls if n == k]
+          for k in ("prefill_chunk", "decode_batch")}
+    per_call = {k: {"calls": len(v), "wall_ms_mean": statistics.mean(v),
+                    "wall_ms_median": statistics.median(v)}
+                for k, v in ms.items() if v}
+    margin = min(m for _, _, m in calls)
+    for mgr in (eng.kv_mgr, eng.st_mgr):
+        if mgr is not None and (mgr.num_free() != mgr.num_blocks
+                                or any(m.ref for m in mgr.meta)):
+            fail(f"{cfg.name} sequential: a pool leaked after the drain")
+    print(f"  {cfg.name} sequential: {n_pre} prefill calls, {n_dec} decode "
+          "calls; wall ms per call " + ", ".join(
+              f"{k} mean {v['wall_ms_mean']:.3f} median "
+              f"{v['wall_ms_median']:.3f}" for k, v in per_call.items())
+          + f"; eval n_cache_hit_tokens {hits} (mixed "
+          f"{mixed['eval_cache_hits']}); {agree} of {total} generated "
+          f"tokens as in the mixed run (bf16); smallest top-1/top-2 logit "
+          f"margin {margin:.3e}", flush=True)
+    print("  sequential launches: " + ", ".join(
+        f"{k} {v} ({v / len(calls):.1f}/call)" for k, v in counts.items()),
+        flush=True)
+    return {"prefill_calls": n_pre, "decode_calls": n_dec,
+            "per_call": per_call, "launches": counts,
+            "launches_per_call": {k: v / len(calls)
+                                  for k, v in counts.items()},
+            "launches_per_decode_call": {
+                "paged_attention": counts["paged_attention"] / n_dec},
+            "eval_cache_hits": hits, "other_hits": other,
+            "tokens_agreeing_with_mixed": agree, "tokens": total,
+            "min_top2_margin": margin,
+            "step_ms_mean": statistics.mean(step_ms)}
 
 
 @contextlib.contextmanager
@@ -1521,12 +1843,69 @@ def expert_copies(prof, cfg):
             and any(tuple(sh) in shapes for sh in e.input_shapes)]
 
 
+def xkv_copies(prof, cfg):
+    """The copies under ``prof`` of a tensor shaped as one or more
+    requests' encoder K/V of a layer, in the pools' layout or the
+    reference's: (input shape, calls)."""
+    KV, Se, hd = cfg.num_kv_heads, cfg.encoder_seq_len, cfg.head_dim
+    tails = {(KV, Se, hd), (Se, KV, hd)}
+    return [(str(e.input_shapes), e.count)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in ("aten::copy_", "aten::clone", "aten::index")
+            and any(tuple(sh[-3:]) in tails for sh in e.input_shapes
+                    if len(sh) >= 3)]
+
+
+def cross_layouts(torch, eng, cfg, n: int = 4):
+    """One decoder layer's cross-attention for a decode batch of ``n``
+    rows over ``n`` run slots' encoder K/V, timed on the runner's
+    float32 pools as they are stored and on model-dtype copies of the
+    same values (the reference's layout; the products upcast them); the
+    two outputs must agree within the output dtype's tolerance.  Returns
+    ms per layer and per step."""
+    from repro_torch.kernels.bench import Timer
+    from repro_torch.models.attention import packed_cross_attention
+
+    r, timer = eng.runner, Timer("cuda")
+    dt = r.params["final_norm"].dtype
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((n, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device="cuda").to(dt)
+    rows = torch.arange(n, dtype=torch.int32, device="cuda")
+    cols = torch.zeros((n,), dtype=torch.int32, device="cuda")
+    pools = {"float32": (r.xk_pool[0, :n], r.xv_pool[0, :n]),
+             str(dt).split(".")[-1]: (r.xk_pool[0, :n].to(dt),
+                                      r.xv_pool[0, :n].to(dt))}
+    out, res = {}, {}
+    for name, (xk, xv) in pools.items():
+        out[name] = packed_cross_attention(q, xk, xv, rows, cols, 2)
+        ms = timer(lambda: packed_cross_attention(q, xk, xv, rows, cols, 2))
+        res[name] = {"ms_per_layer": ms,
+                     "ms_per_step": ms * cfg.num_layers,
+                     "bytes_per_layer": 2 * xk.numel() * xk.element_size()}
+    # the same products on the same values, rounded to q's dtype
+    tol = TOL[str(dt).split(".")[-1]]
+    err = rel_err(*out.values())[2]
+    if err > tol:
+        fail(f"cross-attention differs between the pool layouts: {err} of "
+             f"a row's max > {tol}")
+    print("  cross-attention, decode batch of 4, per layer (x "
+          f"{cfg.num_layers} a step): " + "; ".join(
+              f"{k} pools {v['ms_per_layer']:.4f} ms "
+              f"({v['bytes_per_layer'] / 1e6:.1f} MB of K/V)"
+              for k, v in res.items()) + f"; outputs within {err:.2e} of "
+          "a row's max", flush=True)
+    res["row_rel_err"] = err
+    return res
+
+
 def profile_decode(torch, eng, cfg, n_steps: int = 8):
     """Where a steady decode step's time goes: 4 running requests with
-    256-token contexts, n_steps timed plainly, then n_steps under
-    torch.profiler for the device time by kernel; on a MoE stack, no step
-    may copy an expert's weights, and n_steps more record the experts
-    the routes touch."""
+    256-token contexts (on an encoder-decoder each on its own audio),
+    n_steps timed plainly, then n_steps under torch.profiler for the
+    device time by kernel; on a MoE stack, no step may copy an expert's
+    weights, and n_steps more record the experts the routes touch; on an
+    encoder-decoder, no step may copy a request's encoder K/V."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import SSM
@@ -1534,7 +1913,8 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
     rng = np.random.RandomState(1)
     for _ in range(4):
         eng.submit(list(rng.randint(10, cfg.vocab_size, 256)),
-                   4 * n_steps + 8)
+                   4 * n_steps + 8,
+                   **(audio(rng, cfg) if cfg.is_encoder_decoder else {}))
     for _ in range(64):                 # admission + prefill
         eng.step()
         if eng.running and not eng.waiting and not eng.last_step_tokens[1]:
@@ -1551,6 +1931,12 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
             eng.step()
         torch.cuda.synchronize()
     touched = None
+    if cfg.is_encoder_decoder:
+        copies = xkv_copies(prof, cfg)
+        if copies:
+            fail(f"a decode step copies encoder K/V: {copies}")
+        print("  encoder K/V copies per decode step: 0 (read in place from "
+              "the run slots' pools)", flush=True)
     if cfg.moe is not None:
         copies = expert_copies(prof, cfg)
         if copies:
@@ -1656,14 +2042,17 @@ def profile_decode(torch, eng, cfg, n_steps: int = 8):
     return out
 
 
-def parity(torch, arch: str, prompt_len: int = 40):
+def parity(torch, arch: str, prompt_len: int = 40, mode: str = "mixed"):
     """The reduced float32 ``arch`` with two adapters cycling through one
-    device slot: the same weights and pipeline on the card and on the CPU
-    give identical tokens, prefix-cache hits (KV blocks and state
-    snapshots), ``state_reused`` and adapter evictions.  (The reduced
-    starcoder2 is given prompts longer than its 128-token window; the
-    reduced phi-3-vision serves on images of its 16 patches; the MoE
-    models report their routes' smallest top-k margin.)"""
+    device slot, in execution mode ``mode``: the same weights and
+    pipeline on the card and on the CPU give identical tokens,
+    prefix-cache hits (KV blocks and state snapshots), ``state_reused``
+    and adapter evictions.  (The reduced starcoder2 is given prompts
+    longer than its 128-token window; the reduced phi-3-vision serves on
+    images of its 16 patches, the reduced whisper on audio of its 64
+    frames; the MoE models report their routes' smallest top-k margin,
+    the sequential runs their logits' smallest top-1/top-2 margin.)  The
+    card's run is returned under "card_run"."""
     from repro_torch.configs import get_reduced
     from repro_torch.core.alora import AdapterSpec, init_adapter_weights
     from repro_torch.models.model import init_params
@@ -1678,16 +2067,20 @@ def parity(torch, arch: str, prompt_len: int = 40):
                  init_adapter_weights(gen, cfg, 8, device="cpu")),
                 (AdapterSpec("lora", 8, None),
                  init_adapter_weights(gen, cfg, 8, device="cpu"))]
-    runs, margins = {}, {}
+    runs, margins, logit_margins = {}, {}, {}
     for device in ("cuda", "cpu"):
         eng = Engine(cfg, params, device=device, adapters=adapters,
-                     engine_cfg=EngineConfig(adapter_slots=1))
-        with recorded_routes(torch) as calls:
+                     engine_cfg=EngineConfig(adapter_slots=1,
+                                             execution_mode=mode))
+        with recorded_routes(torch) as calls, \
+                sequential_calls(torch, eng) as seq:
             res, _ = run_pipeline(torch, eng, adapter_names=("eval", "lora"),
                                   prompt_len=prompt_len, gen_len=12,
                                   eval_len=6, batch=3, seed=3)
         if calls:
             margins[device] = min(float(m) for _, m in calls)
+        if seq:
+            logit_margins[device] = min(m for _, _, m in seq)
         reqs = [eng.request(i) for i in res.base_ids + res.eval_ids]
         runs[device] = dict(
             tokens=[r.output_tokens for r in reqs],
@@ -1697,9 +2090,9 @@ def parity(torch, arch: str, prompt_len: int = 40):
             state_hits=eng.st_mgr.hits if eng.st_mgr is not None else None,
             evictions=eng.adapter_pool.evictions)
     if runs["cuda"] != runs["cpu"]:
-        fail(f"{arch}: card and CPU disagree: {runs}")
+        fail(f"{arch} {mode}: card and CPU disagree: {runs}")
     r = runs["cpu"]
-    print(f"  {cfg.name} card == CPU (prompts of {prompt_len}, G "
+    print(f"  {cfg.name} {mode}: card == CPU (prompts of {prompt_len}, G "
           f"{cfg.num_heads // cfg.num_kv_heads}, window {cfg.sliding_window},"
           f" {cfg.activation}): {len(r['tokens'])} requests, KV hits "
           f"{r['kv_hits']}, state hits {r['state_hits']}, state_reused "
@@ -1713,12 +2106,22 @@ def parity(torch, arch: str, prompt_len: int = 40):
         print(f"  smallest top-{cfg.moe.experts_per_token} margin of the "
               f"run's routes: card {margins['cuda']:.3e}, CPU "
               f"{margins['cpu']:.3e}", flush=True)
+    if logit_margins:
+        print(f"  smallest top-1/top-2 logit margin of the sequential calls: "
+              f"card {logit_margins['cuda']:.3e}, CPU "
+              f"{logit_margins['cpu']:.3e}", flush=True)
     if cfg.frontend == "vision":
         print(f"  {cfg.num_patches}-patch image prefix on every base and "
               "eval request", flush=True)
+    if cfg.frontend == "audio":
+        print(f"  {cfg.encoder_seq_len} audio frames on every request",
+              flush=True)
     out = {k: r[k] for k in ("kv_hits", "state_hits", "evictions")}
     if margins:
         out["min_topk_margin"] = margins
+    if logit_margins:
+        out["min_top2_logit_margin"] = logit_margins
+    out["card_run"] = runs["cuda"]
     return out
 
 
@@ -1812,6 +2215,36 @@ def bench_entry(name, source, replaces, launches, bres, edges, case,
                                       if k.startswith(name + "/")})
 
 
+def sequential_entry(name, source, replaces, mp, seq, case, others,
+                     bench):
+    """The ``kernels`` entry of a kernel the sequential step launches
+    (B4, B6): its launches in granite-3.2-8b's sequential run, the error
+    and times at phase 2's serving-shape ``case``, then the same for its
+    ``others``, the launches of every sequential run, and the kernel
+    bench's entry for it (``bench``)."""
+    g = mp["granite-3.2-8b"]["sequential"]
+    first = seq[f"{name}/{case}"]
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": g["launches"][name],
+             "launches_per_call": g["launches_per_call"][name],
+             "path": "granite-3.2-8b, sequential execution mode",
+             "case": case}
+    fields = ("max_abs_err", "rel_err", "row_rel_err", "tol", "ms",
+              "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "base_gemm_ms", "device_split_ms", "device_span_ms", "shape")
+    entry.update({k: first[k] for k in fields if k in first})
+    entry["tol_of"] = TOL_OF
+    entry["others"] = {c: {k: seq[f"{name}/{c}"][k] for k in fields
+                           if k in seq[f"{name}/{c}"]} for c in others}
+    entry["launches_sequential"] = {
+        a: mp[a]["sequential"]["launches"][name] for a in SEQ_ARCHS}
+    entry["calls_sequential"] = {
+        a: mp[a]["sequential"]["prefill_calls"]
+        + mp[a]["sequential"]["decode_calls"] for a in SEQ_ARCHS}
+    entry["bench"] = bench
+    return entry
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1846,7 +2279,8 @@ def main() -> None:
             "mamba2": get_config("mamba2-2.7b"),
             "zamba2": get_config("zamba2-2.7b"),
             **{k: get_config(a) for k, a in zip(DENSE + MOE_VLM,
-                                                DENSE_ARCHS + MOE_VLM_ARCHS)}}
+                                                DENSE_ARCHS + MOE_VLM_ARCHS)},
+            "whisper": get_config(ENCDEC_ARCH)}
     cfg = cfgs["granite"]
     gen = torch.Generator().manual_seed(0)
     timer = Timer("cuda")
@@ -1858,6 +2292,7 @@ def main() -> None:
     scan_edges = check_scan_edges(torch, gen)
     edges = check_bench_edges(torch)
     moe_layer = check_moe(torch, cfgs, timer)
+    seq_kernels = check_sequential_kernels(torch, cfgs, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -1868,19 +2303,36 @@ def main() -> None:
         print(f" [3] {arch}", flush=True)
         mp[arch] = main_path(torch, arch,
                              profile=arch != "zamba2-2.7b",
-                             long=arch == "starcoder2-3b")
-    for arch in MOE_VLM_ARCHS:
+                             long=arch == "starcoder2-3b",
+                             sequential=arch in SEQ_ARCHS)
+    for arch in MOE_VLM_ARCHS + (ENCDEC_ARCH,):
         print(f" [3] {arch}", flush=True)
         mp[arch] = main_path(torch, arch, profile=True, num_layers=(
-            PHIMOE_LAYERS if arch == "phi3.5-moe-42b-a6.6b" else 0))
+            PHIMOE_LAYERS if arch == "phi3.5-moe-42b-a6.6b" else 0),
+            sequential=arch in SEQ_ARCHS)
 
     print("[4] parity, reduced fp32, card vs CPU", flush=True)
     par = {arch: parity(torch, arch)
            for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
-                        *DENSE_ARCHS[:3], *MOE_VLM_ARCHS)}
+                        *DENSE_ARCHS[:3], *MOE_VLM_ARCHS, ENCDEC_ARCH)}
     # past the reduced starcoder2's 128-token window
     par["starcoder2-3b"] = parity(torch, "starcoder2-3b", prompt_len=150)
     par["slot_rank"] = slot_rank_card(torch)
+    # the sequential mode on the card against the CPU, then against the
+    # mixed run on the card
+    for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
+                 ENCDEC_ARCH):
+        par[f"{arch}/sequential"] = seq = parity(torch, arch,
+                                                 mode="sequential")
+        mixed, got = par[arch]["card_run"], seq["card_run"]
+        for k in ("tokens", "hits", "state_reused"):
+            if got[k] != mixed[k]:
+                fail(f"{arch}: sequential != mixed on the card ({k}): "
+                     f"{got[k]} vs {mixed[k]}")
+        print(f"  {arch}: sequential == mixed on the card (tokens, hits, "
+              "state_reused)", flush=True)
+    for r in par.values():
+        r.pop("card_run", None)
 
     print("[5] kernel bench entry point, full width", flush=True)
     bres, blaunch, bsec = bench_path(torch)
@@ -1944,6 +2396,15 @@ def main() -> None:
             decode_attention_device_ms_per_step_moe_vlm={
                 a: mp[a]["decode_profile"]["attention_device_ms_per_step"]
                 for a in MOE_VLM_ARCHS},
+            encdec={key: {k: v for k, v in attn[key].items()
+                          if k != "bytes" and k != "ops"}
+                    for key in attn if key.split("_")[0] in ENCDEC},
+            launches_whisper=mp[ENCDEC_ARCH]["launches"][
+                "ragged_paged_attention"],
+            launches_per_step_whisper=mp[ENCDEC_ARCH]["launches_per_step"][
+                "ragged_paged_attention"],
+            decode_attention_device_ms_per_step_whisper=mp[ENCDEC_ARCH][
+                "decode_profile"]["attention_device_ms_per_step"],
             edge_rel_err=attn_edges),
         kernel_entry(
             "ragged_grouped_lora", "src/repro_torch/csrc/ragged_lora.cu",
@@ -1954,6 +2415,8 @@ def main() -> None:
             decode4=pick(lm["decode4"], *timed, "max_abs_err",
                          "rel_err"),
             launches_zamba2=z["launches"]["ragged_grouped_lora"],
+            launches_zamba2_sequential=z["sequential"]["launches"][
+                "ragged_grouped_lora"],
             zamba2_in_proj={k: v for k, v in lora.items()
                             if k.startswith("bfloat16_zamba2_in_proj")}),
         kernel_entry(
@@ -1990,6 +2453,14 @@ def main() -> None:
             launches_per_step_moe_vlm={
                 a: mp[a]["launches_per_step"]["ragged_grouped_lora_qkv"]
                 for a in MOE_VLM_ARCHS},
+            whisper={**pick(lora["bfloat16_whisper_qkv"], "d", "out",
+                            "max_abs_err", "rel_err", *timed),
+                     "decode4": pick(lora["bfloat16_whisper_qkv"]["decode4"],
+                                     "max_abs_err", "rel_err", *timed)},
+            launches_whisper=mp[ENCDEC_ARCH]["launches"][
+                "ragged_grouped_lora_qkv"],
+            launches_per_step_whisper=mp[ENCDEC_ARCH]["launches_per_step"][
+                "ragged_grouped_lora_qkv"],
             edge_rel_err=lora_edges),
         kernel_entry(
             "ragged_ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk.cu",
@@ -2009,19 +2480,33 @@ def main() -> None:
                   "bound_ms", "bound_by")},
             n64_decode4=pick(scan["zamba2"]["decode4"], *timed),
             edge_rel_err=scan_edges),
-        bench_entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-                    "src/repro/kernels/paged_attention.py:141", blaunch,
-                    bres, edges, "granite_bf16",
-                    others=("granite_f32_window24",)),
+        sequential_entry(
+            "paged_attention", "src/repro_torch/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:141", mp, seq_kernels,
+            "granite_decode4", ("zamba2_decode4", "whisper_decode4"),
+            bench_entry("paged_attention",
+                        "src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:141", blaunch,
+                        bres, edges, "granite_bf16",
+                        others=("granite_f32_window24",))),
         bench_entry("ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk_dense.cu",
                     "src/repro/kernels/ssd_chunk.py:73", blaunch, bres, edges,
                     "mamba2_N128", others=("zamba2_N64",)),
-        bench_entry("alora_qkv", "src/repro_torch/csrc/alora_qkv.cu",
-                    "src/repro/kernels/alora_qkv.py:45", blaunch, bres, edges,
-                    "granite_bf16_T512",
-                    others=("granite_bf16_T128", "granite_f32_T128")),
+        sequential_entry(
+            "alora_qkv", "src/repro_torch/csrc/alora_qkv.cu",
+            "src/repro/kernels/alora_qkv.py:45", mp, seq_kernels,
+            "granite_q_T4", ("granite_q_T64", "granite_q_T128",
+                             "granite_kv_T4", "granite_kv_T64",
+                             "granite_kv_T128", "zamba2_q_T4",
+                             "zamba2_q_T64", "zamba2_q_T128", "whisper_q_T4",
+                             "whisper_q_T64", "whisper_q_T128"),
+            bench_entry("alora_qkv", "src/repro_torch/csrc/alora_qkv.cu",
+                        "src/repro/kernels/alora_qkv.py:45", blaunch, bres,
+                        edges, "granite_bf16_T512",
+                        others=("granite_bf16_T128", "granite_f32_T128"))),
     ]
     print(json.dumps({"main_path": mp, "parity": par, "moe_layer": moe_layer,
+                      "sequential_kernels": seq_kernels,
                       "bench": bres,
                       "bench_seconds": bsec, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)

@@ -89,15 +89,19 @@ class ModelConfig:
         return tuple([ATTN] * self.num_layers)
 
     def param_count(self) -> int:
-        """Total parameters of a dense, MoE, SSM or hybrid stack
-        (embeddings once, tied -> once; the reference's count without its
-        encoder-decoder terms)."""
+        """Total parameters (embeddings once, tied -> once; an
+        encoder-decoder adds its encoder's attention and MLP weights and
+        each decoder layer's cross-attention weights; norms counted as
+        the reference counts them)."""
         d = self.d_model
         emb = self.vocab_size * d
         n = emb if self.tie_embeddings else 2 * emb
         attn, mlp = self._attn_params(), self._mlp_params()
         for kind in self.pattern():
             n += attn + mlp if kind == ATTN else self._ssm_params()
+        if self.is_encoder_decoder:
+            n += self.num_encoder_layers * (attn + mlp) \
+                + self.num_layers * attn
         n += (self.num_layers * 2 + 1) * d
         return n
 

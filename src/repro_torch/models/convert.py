@@ -35,7 +35,9 @@ def params_from_jax(np_tree: Params, cfg: ModelConfig, device="cuda"
     (repeats, count, ...) into the port's per-layer list, in the order
     the reference's ``iter_layers`` walks them; every layout is kept
     (``embed/tok`` with the padded vocab, ``ln1``/``ln2``/``final_norm``,
-    the untied ``embed/unembed`` where present)."""
+    the untied ``embed/unembed`` where present, each decoder layer's
+    ``xln``/``xattn``).  An encoder-decoder's ``encoder/blocks`` leaves,
+    (num_encoder_layers, 1, ...), become ``encoder/layers``."""
     check_supported(cfg)
     dev = resolve_device(device)
     repeats, segs = period_segments(cfg)
@@ -45,9 +47,17 @@ def params_from_jax(np_tree: Params, cfg: ModelConfig, device="cuda"
             seg = np_tree["blocks"][f"seg{si}"]
             for c in range(count):
                 layers.append(tree_map(lambda a: _tensor(a[r, c], dev), seg))
-    return {"embed": tree_map(lambda a: _tensor(a, dev), np_tree["embed"]),
-            "final_norm": _tensor(np_tree["final_norm"], dev),
-            "layers": layers}
+    params = {"embed": tree_map(lambda a: _tensor(a, dev), np_tree["embed"]),
+              "final_norm": _tensor(np_tree["final_norm"], dev),
+              "layers": layers}
+    if cfg.is_encoder_decoder:
+        enc = np_tree["encoder"]
+        params["encoder"] = {
+            "layers": [tree_map(lambda a: _tensor(a[i, 0], dev),
+                                enc["blocks"])
+                       for i in range(cfg.num_encoder_layers)],
+            "final_norm": _tensor(enc["final_norm"], dev)}
+    return params
 
 
 def adapters_from_jax(np_tree: Params, cfg: ModelConfig, device="cuda"

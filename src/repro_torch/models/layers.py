@@ -5,7 +5,9 @@ Plain functions on tensors with explicit parameter dictionaries.  The
 rounding points follow the reference exactly: ``rmsnorm`` and
 ``apply_rope`` compute in fp32 and cast back, and ``qkv_project`` adds
 the adapter delta in the activation dtype.  Dense products are
-``torch.matmul``, as the reference leaves them to XLA.
+``torch.matmul``, as the reference leaves them to XLA; an adapted Q/K/V
+projection goes to a kernel wrapper (the grouped delta in the mixed
+step, the fused aLoRA projection otherwise).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.alora_qkv import alora_qkv
 from repro_torch.kernels.ragged_lora import (ragged_grouped_lora,
                                              ragged_grouped_lora_qkv)
 
@@ -109,16 +112,12 @@ def lora_delta(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
 
 def lora_delta_dispatch(x: torch.Tensor, a_stack: torch.Tensor,
                         b_stack: torch.Tensor, adapter_idx: torch.Tensor,
-                        active_slots: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """The dense delta when ``active_slots`` is None, else the grouped
-    delta over the step's active slots (the mixed serving step): the
-    hand-written kernel on a CUDA tensor, its plain version on the CPU.
-
-    The two agree within rounding, not bitwise: the dense delta sums over
-    a different contraction length per slot than the grouped one."""
-    if active_slots is None:
-        return lora_delta(x, a_stack, b_stack, adapter_idx)
+                        active_slots: torch.Tensor) -> torch.Tensor:
+    """The grouped delta over ``active_slots`` for x of any leading
+    shape: the hand-written kernel on a CUDA tensor, its plain version on
+    the CPU.  With every slot of the stack active it is the dense
+    :func:`lora_delta` (the plain version bitwise; the kernel within
+    rounding: it rounds ``x @ A`` once)."""
     lead = x.shape[:-1]
     d = ragged_grouped_lora(x.reshape(-1, x.shape[-1]).contiguous(),
                             a_stack, b_stack,
@@ -133,26 +132,26 @@ def qkv_project(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 active_slots: Optional[torch.Tensor] = None):
     """Project to q, k, v, adding the activation-aware low-rank update of
     each of Q/K/V when ``alora`` ({"aq","bq","ak","bk","av","bv"} with a
-    leading slot axis) is given: the dense delta without
-    ``active_slots``, else the three grouped deltas in one call."""
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if alora is not None:
+    leading slot axis) is given: without ``active_slots``, each
+    projection is one fused aLoRA call (``x @ W`` plus the delta of every
+    slot: the reference's dense delta), else the three grouped deltas
+    over the active slots come from one call."""
+    lead = x.shape[:-1]
+    if alora is None:
+        q, k, v = (x @ p["w" + n] for n in "qkv")
+    else:
         if adapter_idx is None:
             raise ValueError("alora weights given without adapter_idx")
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        idx = adapter_idx.reshape(-1).contiguous()
         pairs = [(alora["a" + n], alora["b" + n]) for n in "qkv"]
         if active_slots is None:
-            deltas = [lora_delta(x, a, b, adapter_idx) for a, b in pairs]
+            q, k, v = (alora_qkv(x2, p["w" + n], a, b, idx).reshape(
+                lead + (-1,)) for n, (a, b) in zip("qkv", pairs))
         else:
-            lead = x.shape[:-1]
-            deltas = [d.reshape(lead + (d.shape[-1],))
-                      for d in ragged_grouped_lora_qkv(
-                          x.reshape(-1, x.shape[-1]).contiguous(), *pairs,
-                          adapter_idx.reshape(-1).contiguous(),
-                          active_slots)]
-        q, k, v = q + deltas[0], k + deltas[1], v + deltas[2]
-    lead = x.shape[:-1]
+            deltas = ragged_grouped_lora_qkv(x2, *pairs, idx, active_slots)
+            q, k, v = (x @ p["w" + n] + d.reshape(lead + (-1,))
+                       for n, d in zip("qkv", deltas))
     q = q.reshape(lead + (cfg.num_heads, cfg.head_dim))
     k = k.reshape(lead + (cfg.num_kv_heads, cfg.head_dim))
     v = v.reshape(lead + (cfg.num_kv_heads, cfg.head_dim))

@@ -1,8 +1,10 @@
 """Model assembly — the counterpart of the reference's
 ``repro/models/model.py`` for dense and mixture-of-experts decoder
 stacks (a vision prefix enters as prompt embeddings, in the runner),
-pure SSM stacks (mamba2) and periodic hybrids (zamba2: 5 SSM + 1
-attention layer per period).
+pure SSM stacks (mamba2), periodic hybrids (zamba2: 5 SSM + 1
+attention layer per period) and the encoder-decoder (whisper: a
+bidirectional encoder over stub audio-frame embeddings, a causal
+decoder whose layers cross-attend to the encoder's output).
 
 Parameters are a plain dictionary::
 
@@ -10,9 +12,12 @@ Parameters are a plain dictionary::
      "final_norm": (d,),
      "layers": [{"ln1", "attn": {"wq","wk","wv","wo"}, "ln2",
                  "mlp": {"w_up","w_down"[,"w_gate" (swiglu)]}
-                        | "moe": {"router", "w_up", "w_down"[, "w_gate"]}}
+                        | "moe": {"router", "w_up", "w_down"[, "w_gate"]}
+                 [, "xln", "xattn": {"wq","wk","wv","wo"}]}  # enc-dec
                 | {"ln", "ssm": {"in_z", "in_xbc", ...}},  # SSM
-                ...]}
+                ...]
+     [, "encoder": {"layers": [{"ln1", "attn", "ln2", "mlp"}, ...],
+                    "final_norm": (d,)}]}                    # enc-dec
 
 with one entry per layer in network order — the reference's
 ``blocks/seg{i}`` stacks unrolled the way its ``iter_layers`` walks them
@@ -29,6 +34,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ATTN, SSM, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.attention import cross_attention, flash_attention
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_ssm
 
@@ -36,21 +42,17 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the architecture families the port does not run yet,
-    naming the ROADMAP item that ports them."""
+    """Raise for a configuration no model here can be built from."""
     kinds = set(cfg.pattern())
     if not kinds <= {ATTN, SSM}:
         raise ValueError(f"{cfg.name}: unknown layer kinds "
                          f"{sorted(kinds - {ATTN, SSM})}")
     if SSM in kinds and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: SSM layers need an SSMConfig")
-    for what, present, item in (
-            (f"the {cfg.frontend} frontend",
-             cfg.frontend not in ("none", "vision"), "A10d"),
-            ("encoder-decoder", cfg.is_encoder_decoder, "A10d")):
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP {item})")
+    if cfg.is_encoder_decoder and (SSM in kinds or cfg.num_encoder_layers
+                                   <= 0 or cfg.encoder_seq_len <= 0):
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs attention "
+                         "decoder layers, encoder layers and frames")
 
 
 def effective_window(cfg: ModelConfig) -> int:
@@ -103,24 +105,14 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     def ones():
         return torch.ones((d,), dtype=dtype, device=dev)
 
-    v = L.padded_vocab(cfg)
-    embed = {"tok": normal((v, d), 0.02)}
-    if not cfg.tie_embeddings:
-        embed["unembed"] = normal((d, v), 0.02)
-    layers = []
-    for kind in cfg.pattern():
-        if kind == SSM:
-            layers.append({"ln": ones(),
-                           "ssm": init_ssm(generator, cfg, dtype, dev)})
-            continue
-        layer = {
-            "ln1": ones(),
-            "attn": {"wq": normal((d, H * hd), std),
-                     "wk": normal((d, KV * hd), std),
-                     "wv": normal((d, KV * hd), std),
-                     "wo": normal((H * hd, d), out_std)},
-            "ln2": ones(),
-        }
+    def attn():
+        return {"wq": normal((d, H * hd), std),
+                "wk": normal((d, KV * hd), std),
+                "wv": normal((d, KV * hd), std),
+                "wo": normal((H * hd, d), out_std)}
+
+    def attn_layer(cross: bool):
+        layer = {"ln1": ones(), "attn": attn(), "ln2": ones()}
         if cfg.moe is not None:
             layer["moe"] = init_moe(generator, cfg, dtype, dev)
         else:
@@ -128,8 +120,24 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                             "w_down": normal((cfg.d_ff, d), out_std)}
             if cfg.activation == "swiglu":  # gated: the reference's init_mlp
                 layer["mlp"]["w_gate"] = normal((d, cfg.d_ff), std)
-        layers.append(layer)
-    return {"embed": embed, "final_norm": ones(), "layers": layers}
+        if cross:
+            layer["xln"], layer["xattn"] = ones(), attn()
+        return layer
+
+    v = L.padded_vocab(cfg)
+    embed = {"tok": normal((v, d), 0.02)}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = normal((d, v), 0.02)
+    layers = [{"ln": ones(), "ssm": init_ssm(generator, cfg, dtype, dev)}
+              if kind == SSM else attn_layer(cfg.is_encoder_decoder)
+              for kind in cfg.pattern()]
+    params = {"embed": embed, "final_norm": ones(), "layers": layers}
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [attn_layer(False)
+                       for _ in range(cfg.num_encoder_layers)],
+            "final_norm": ones()}
+    return params
 
 
 def iter_layers(params: Params, cfg: ModelConfig
@@ -137,6 +145,53 @@ def iter_layers(params: Params, cfg: ModelConfig
     """Yield (kind, per-layer params) in network order."""
     for kind, lp in zip(cfg.pattern(), params["layers"]):
         yield kind, lp
+
+
+def attn_sublayer_full(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional full-sequence attention sublayer with its residual,
+    without an adapter (the encoder's; single device: no context
+    parallelism, no remat).  x: (B, S, d); positions: (B, S)."""
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L.qkv_project(lp["attn"], cfg, h)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=False)
+    return x + L.out_project(lp["attn"], cfg, o)
+
+
+def cross_attn_sublayer(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                        xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """Decoder → encoder cross-attention with its residual, given the
+    projected encoder K/V (B, Se, KV, hd); x: (B, S, d)."""
+    h = L.rmsnorm(x, lp["xln"], cfg.norm_eps)
+    q = (h @ lp["xattn"]["wq"]).reshape(
+        h.shape[:-1] + (cfg.num_heads, cfg.head_dim))
+    return x + L.out_project(lp["xattn"], cfg, cross_attention(q, xk, xv))
+
+
+def encoder_kv(lp: Params, cfg: ModelConfig, enc_out: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the encoder output (B, Se, d) to this decoder layer's
+    cross K/V, each (B, Se, KV, hd)."""
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
+    return ((enc_out @ lp["xattn"]["wk"]).reshape(shape),
+            (enc_out @ lp["xattn"]["wv"]).reshape(shape))
+
+
+def run_encoder(enc_params: Params, cfg: ModelConfig, frames: torch.Tensor
+                ) -> torch.Tensor:
+    """The bidirectional encoder over stub frame embeddings (B, Se, d),
+    RoPE on the frame positions as in the reference; returns the final
+    normed output in the model dtype."""
+    x = frames.to(L.dtype_of(cfg))
+    B, Se, _ = x.shape
+    positions = torch.arange(Se, device=x.device).expand(B, Se)
+    for lp in enc_params["layers"]:
+        x = attn_sublayer_full(lp, cfg, x, positions)
+        x = mlp_sublayer(lp, cfg, x)
+    return L.rmsnorm(x, enc_params["final_norm"], cfg.norm_eps)
 
 
 def mlp_sublayer(lp: Params, cfg: ModelConfig, x: torch.Tensor

@@ -1,5 +1,5 @@
-"""Mamba2 (SSD) blocks of the mixed serving step, the PyTorch counterpart
-of the reference's ``repro/models/ssm.py``.  [arXiv:2405.21060]
+"""Mamba2 (SSD) blocks, the PyTorch counterpart of the reference's
+``repro/models/ssm.py``.  [arXiv:2405.21060]
 
 ``ssd_ragged_forward`` is one SSM sublayer over a mixed ragged batch:
 every scheduled token (decode singletons and prefill chunks) packed
@@ -12,9 +12,13 @@ projection in float32, rounded once to the activation dtype.  The conv
 is index gathers and a float32 einsum, as in the reference (no
 ``F.conv1d``, which runs float32 in TF32 on a card by default).
 
-The reference's full-sequence ``ssd_forward`` and single-token
-``ssd_decode_step`` serve its sequential oracle path and are ported
-with it (ROADMAP A11).
+``ssd_forward`` (the chunked SSD over whole sequences: quadratic within
+a chunk, a recurrence on the (nh, N, P) state across chunks, the state
+at every chunk boundary on request) and ``ssd_decode_step`` (one token
+of the recurrence) serve the sequential execution mode.  Their adapter
+delta over every resident slot is the grouped delta with all of them
+active, which is the reference's dense delta: on a card it is the
+hand-written kernel's one-pair entry.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_chunk import ragged_ssd_chunk_scan
-from repro_torch.models.layers import lora_delta_dispatch
+from repro_torch.models.layers import dtype_of, lora_delta_dispatch
 
 Params = Dict[str, Any]
 
@@ -81,6 +85,194 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, dtype,
         "norm_w": torch.ones((d_inner,), dtype=dtype, device=device),
         "out_proj": normal((d_inner, d), out_std),
     }
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero (ssm state (batch, nh, N, P) float32, conv window (batch,
+    W-1, ch) in the model dtype)."""
+    s = cfg.ssm
+    _, nh, conv_ch = ssm_dims(cfg)
+    return (torch.zeros((batch, nh, s.state_dim, s.head_dim),
+                        dtype=torch.float32, device=device),
+            torch.zeros((batch, s.conv_width - 1, conv_ch),
+                        dtype=dtype_of(cfg), device=device))
+
+
+def _all_slots_delta(x: torch.Tensor, alora: Params,
+                     adapter_idx: torch.Tensor) -> torch.Tensor:
+    """The fused input projection's delta of every slot of the stack
+    (slot 0 is the zero adapter): the grouped delta with all of them
+    active."""
+    slots = torch.arange(1, alora["a"].shape[0], dtype=torch.int32,
+                         device=x.device)
+    return lora_delta_dispatch(x, alora["a"], alora["b"], adapter_idx,
+                               slots)
+
+
+def _causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor,
+                 conv_b: torch.Tensor, conv_state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along the sequence.  xBC: (B, S, C); conv_w:
+    (W, C); conv_state: (B, W-1, C) raw inputs before xBC (None: zeros).
+    Returns (the activated output in xBC's dtype, the new window)."""
+    B, S, C = xBC.shape
+    W = conv_w.shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((B, W - 1, C), dtype=xBC.dtype,
+                                 device=xBC.device)
+    full = torch.cat([conv_state, xBC], dim=1)             # (B, W-1+S, C)
+    out = torch.zeros((B, S, C), dtype=torch.float32, device=xBC.device)
+    for w in range(W):
+        out = out + full[:, w:w + S].float() * conv_w[w].float()
+    out = F.silu(out + conv_b.float()).to(xBC.dtype)
+    return out, full[:, -(W - 1):]
+
+
+def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                ssm_state: Optional[torch.Tensor] = None,
+                conv_state: Optional[torch.Tensor] = None,
+                alora: Optional[Params] = None,
+                adapter_idx: Optional[torch.Tensor] = None,
+                valid_len: Optional[int] = None,
+                return_boundary_states: bool = False):
+    """Chunked SSD over whole sequences (chunks of ``cfg.ssm.chunk_size``
+    tokens).  x: (B, S, d).  Returns (y (B, S, d), ssm_state (B, nh, N,
+    P) float32, conv_state (B, W-1, ch)).
+
+    ``valid_len``: tokens at and after this index are padding (dt forced
+    to 0, so the state stays frozen; the returned conv window ends at
+    ``valid_len``).  ``return_boundary_states``: also return the state
+    and the raw conv window at every chunk boundary, ((nc, B, nh, N, P),
+    (nc, B, W-1, ch)) — what the engine snapshots when the chunk size is
+    its block size.  The within-chunk products of every chunk run as one
+    batch; only the state's recurrence across chunks is a loop."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    d_inner, nh, conv_ch = ssm_dims(cfg)
+    G, N, P = s.ngroups, s.state_dim, s.head_dim
+    hpg = nh // G
+    W = s.conv_width
+    Q = min(s.chunk_size, S)
+
+    z = x @ p["in_z"]
+    xBC = x @ p["in_xbc"]
+    dt = x @ p["in_dt"]                                    # (B, S, nh)
+    if alora is not None:
+        if adapter_idx is None:
+            raise ValueError("alora weights given without adapter_idx")
+        delta = _all_slots_delta(x, alora, adapter_idx)
+        z = z + delta[..., :d_inner]
+        xBC = xBC + delta[..., d_inner:d_inner + conv_ch]
+        dt = dt + delta[..., d_inner + conv_ch:]
+    seq_valid = None
+    if valid_len is not None:
+        seq_valid = torch.arange(S, device=x.device) < valid_len
+        xBC = xBC * seq_valid[None, :, None].to(xBC.dtype)
+    if conv_state is None:
+        conv_state = torch.zeros((B, W - 1, conv_ch), dtype=xBC.dtype,
+                                 device=x.device)
+    full_raw = torch.cat([conv_state, xBC], dim=1)         # (B, W-1+S, ch)
+    xBC, new_conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                       conv_state)
+    if valid_len is not None:
+        new_conv_state = full_raw[:, valid_len:valid_len + W - 1]
+    xs = xBC[..., :d_inner].reshape(B, S, nh, P).float()
+    Bh = xBC[..., d_inner:d_inner + G * N].reshape(B, S, G, N) \
+        .repeat_interleave(hpg, dim=2).float()             # (B, S, nh, N)
+    Ch = xBC[..., d_inner + G * N:].reshape(B, S, G, N) \
+        .repeat_interleave(hpg, dim=2).float()
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    if seq_valid is not None:
+        dt = dt * seq_valid[None, :, None]
+    dA = dt * (-torch.exp(p["A_log"]))                     # (B, S, nh)
+
+    # ---- chunks: (B, nc, Q, ...) --------------------------------------
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+
+    def chunked(t):
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((B, nc, Q) + t.shape[2:])
+
+    xc, Bc, Cc, dAc, dtc = map(chunked, (xs, Bh, Ch, dA, dt))
+    csum = torch.cumsum(dAc, dim=2)                        # (B, nc, Q, nh)
+    total = csum[:, :, -1]                                 # (B, nc, nh)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    diff = csum[:, :, :, None, :] - csum[:, :, None, :, :]
+    Lm = torch.where(tri[:, :, None], torch.exp(diff),
+                     torch.zeros_like(diff))               # (B, nc, Q, Q, nh)
+    CB = torch.einsum("bcqhn,bckhn->bcqkh", Cc, Bc)
+    Wm = CB * Lm * dtc[:, :, None, :, :]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", Wm, xc)
+    decay_to_end = torch.exp(total[:, :, None, :] - csum)
+    chunk_state = torch.einsum("bckhn,bckhp->bchnp",
+                               Bc * (dtc * decay_to_end)[..., None], xc)
+    state = ssm_state if ssm_state is not None else torch.zeros(
+        (B, nh, N, P), dtype=torch.float32, device=x.device)
+    entry, after = [], []
+    for c in range(nc):
+        entry.append(state)
+        state = torch.exp(total[:, c])[..., None, None] * state \
+            + chunk_state[:, c]
+        after.append(state)
+    # the incoming state's contribution to every chunk
+    y = y + torch.einsum("bcqhn,bchnp->bcqhp", Cc * torch.exp(csum)[..., None],
+                         torch.stack(entry, dim=1))
+    y = y.reshape(B, nc * Q, nh, P)[:, :S] + p["D"][:, None] * xs
+    y = _rmsnorm_gated(y.reshape(B, S, d_inner), z, p["norm_w"],
+                       cfg.norm_eps)
+    out = (y @ p["out_proj"].float()).to(x.dtype)
+    if not return_boundary_states:
+        return out, state, new_conv_state
+    # the raw conv window ending at each chunk boundary (clamped to S)
+    ends = ((torch.arange(nc, device=x.device) + 1) * Q).clamp(max=S)
+    idx = ends[:, None] + torch.arange(W - 1, device=x.device)[None, :]
+    boundary_conv = full_raw[:, idx].transpose(0, 1)       # (nc, B, W-1, ch)
+    return out, state, new_conv_state, (torch.stack(after), boundary_conv)
+
+
+def ssd_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                    alora: Optional[Params] = None,
+                    adapter_idx: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One token of the recurrence.  x: (B, 1, d); ssm_state (B, nh, N,
+    P) float32; conv_state (B, W-1, ch).  Returns (y (B, 1, d), the new
+    ssm state, the new conv window)."""
+    s = cfg.ssm
+    Bsz = x.shape[0]
+    d_inner, nh, conv_ch = ssm_dims(cfg)
+    G, N, P = s.ngroups, s.state_dim, s.head_dim
+    hpg = nh // G
+    x0 = x[:, 0]
+    z = x0 @ p["in_z"]
+    xBC = x0 @ p["in_xbc"]
+    dt = x0 @ p["in_dt"]
+    if alora is not None:
+        if adapter_idx is None:
+            raise ValueError("alora weights given without adapter_idx")
+        idx = adapter_idx[:, 0] if adapter_idx.dim() == 2 else adapter_idx
+        delta = _all_slots_delta(x0, alora, idx)
+        z = z + delta[:, :d_inner]
+        xBC = xBC + delta[:, d_inner:d_inner + conv_ch]
+        dt = dt + delta[:, d_inner + conv_ch:]
+    full = torch.cat([conv_state, xBC[:, None, :]], dim=1)  # (B, W, ch)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", full.float(),
+                                   p["conv_w"].float()) + p["conv_b"].float())
+    xt = conv_out[:, :d_inner].reshape(Bsz, nh, P)
+    Bt = conv_out[:, d_inner:d_inner + G * N].reshape(Bsz, G, N) \
+        .repeat_interleave(hpg, dim=1)                     # (B, nh, N)
+    Ct = conv_out[:, d_inner + G * N:].reshape(Bsz, G, N) \
+        .repeat_interleave(hpg, dim=1)
+    dt = F.softplus(dt.float() + p["dt_bias"])            # (B, nh)
+    dA = torch.exp(dt * (-torch.exp(p["A_log"])))
+    new_state = dA[..., None, None] * ssm_state \
+        + torch.einsum("bhn,bhp->bhnp", Bt * dt[..., None], xt)
+    y = torch.einsum("bhn,bhnp->bhp", Ct, new_state) + p["D"][:, None] * xt
+    y = _rmsnorm_gated(y.reshape(Bsz, d_inner), z, p["norm_w"], cfg.norm_eps)
+    out = (y @ p["out_proj"].float()).to(x.dtype)
+    return out[:, None, :], new_state, full[:, 1:]
 
 
 def _rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
@@ -156,8 +348,9 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     xBC = x @ p["in_xbc"]
     dtr = x @ p["in_dt"]                                    # (T, nh)
     if alora is not None:
-        if adapter_idx is None:
-            raise ValueError("alora weights given without adapter_idx")
+        if adapter_idx is None or active_slots is None:
+            raise ValueError("alora weights given without adapter_idx "
+                             "and active_slots")
         delta = lora_delta_dispatch(x, alora["a"], alora["b"], adapter_idx,
                                     active_slots)
         z = z + delta[:, :d_inner]

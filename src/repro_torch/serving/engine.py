@@ -1,8 +1,10 @@
 """The serving engine: scheduler + continuous batching + chunked prefill +
 cross-model prefix caching (the paper's system, §3), ported from the
 reference's ``repro/serving/engine.py`` for attention (dense or
-mixture-of-experts MLPs, optionally behind an image-patch prefix), SSM
-and hybrid stacks.
+mixture-of-experts MLPs, optionally behind an image-patch prefix), SSM,
+hybrid and encoder-decoder stacks (an audio request's encoder runs once
+at admission; its cross K/V stay in its run slot until it finishes or is
+preempted).
 
 Request flow (paper Fig. 5): submit → [queue] → admission (prefix-cache
 match on base-aligned block hashes and SSM state snapshots) → chunked
@@ -23,8 +25,10 @@ Each iteration is a **schedule → submit → retire** pipeline
 so with ``EngineConfig.async_submission`` (the default) step N+1 is
 scheduled, assembled and enqueued BEFORE step N's sampled ids are
 fetched, and the only per-step device→host payload is a handful of
-int32 ids.  Only the mixed execution mode is ported; the reference's
-sequential oracle mode is ROADMAP item A11.
+int32 ids.  ``EngineConfig(execution_mode="sequential")`` runs the
+reference's oracle of that path instead: the same schedule, executed as
+one device call per decode batch and one per prefill chunk, each
+synchronous and returning whole logits to the host.
 """
 from __future__ import annotations
 
@@ -81,7 +85,9 @@ class EngineConfig:
     num_state_slots: int = 64
     max_batched_tokens: int = 128     # chunked-prefill budget per step
     enable_prefix_cache: bool = True
-    # "mixed" only; the reference's "sequential" oracle is ROADMAP A11
+    # "mixed": one device step over every scheduled token; "sequential":
+    # one call per decode batch and per prefill chunk, synchronous (the
+    # mixed path's equivalence oracle)
     execution_mode: str = "mixed"
     # device-resident adapter slots (None -> one per construction-time
     # adapter) and the rank bucket they pad into (None -> pow2 bucket of
@@ -98,7 +104,7 @@ class EngineConfig:
     adapter_staging_ttl: int = 64
     adapter_evict_policy: Optional[Callable[[Sequence[str]], str]] = None
     # one-step-lookahead submission; False retires every step before the
-    # next is scheduled (the synchronous oracle)
+    # next is scheduled (the synchronous oracle).  Mixed mode only
     async_submission: bool = True
     # the virtual clock advances by measured wall time times this factor
     time_scale: float = 1.0
@@ -112,13 +118,10 @@ class Engine:
                  adapters: Optional[List[Tuple[AdapterSpec, dict]]] = None,
                  device="cuda"):
         check_supported(cfg)
-        if engine_cfg.execution_mode == "sequential":
-            raise NotImplementedError(
-                "execution_mode='sequential' is not ported yet "
-                "(ROADMAP A11); the port runs the mixed path")
-        if engine_cfg.execution_mode != "mixed":
+        if engine_cfg.execution_mode not in ("mixed", "sequential"):
             raise ValueError(f"unknown execution_mode "
-                             f"{engine_cfg.execution_mode!r}")
+                             f"{engine_cfg.execution_mode!r}: expected "
+                             "'mixed' or 'sequential'")
         if engine_cfg.admission_policy not in ("affinity", "fcfs"):
             raise ValueError(f"unknown admission_policy "
                              f"{engine_cfg.admission_policy!r}: "
@@ -180,7 +183,8 @@ class Engine:
         self.preemptions = 0
         self.last_step_tokens = (0, 0)        # (n_decode, n_prefill)
         self.t_assembly = 0.0                 # host-side batch-pack time
-        self.use_async = engine_cfg.async_submission
+        self.use_mixed = engine_cfg.execution_mode == "mixed"
+        self.use_async = self.use_mixed and engine_cfg.async_submission
         self._inflight: Optional[_InflightStep] = None
         # steps scheduled and assembled while the previous one was still
         # on the device (the overlap the pipeline exists for)
@@ -228,18 +232,25 @@ class Engine:
                adapter_name: Optional[str] = None,
                arrival_time: Optional[float] = None,
                prefix_embeds: Optional[np.ndarray] = None,
+               frame_embeds: Optional[np.ndarray] = None,
                salt: Tuple = ()) -> int:
         """Queue a request.  ``prefix_embeds`` (P, d): image-patch
         embeddings that take the place of the prompt's leading P rows
-        (the prompt holds P pseudo-token ids there for hashing); give the
-        image's content digest as ``salt`` so that its blocks are reused
-        only for the same image."""
+        (the prompt holds P pseudo-token ids there for hashing);
+        ``frame_embeds`` (Se, d): an encoder-decoder request's audio
+        frames, which every decoder layer cross-attends to.  Give the
+        image's or the audio's content digest as ``salt`` so that its
+        blocks are reused only for the same content."""
+        if self.cfg.is_encoder_decoder and frame_embeds is None:
+            raise ValueError(f"{self.cfg.name} serves requests with "
+                             "frame_embeds")
         req = Request(req_id=self._next_id,
                       prompt=list(map(int, prompt)),
                       max_new_tokens=max_new_tokens,
                       arrival_time=self.clock if arrival_time is None
                       else arrival_time,
-                      prefix_embeds=prefix_embeds, salt=salt)
+                      prefix_embeds=prefix_embeds,
+                      frame_embeds=frame_embeds, salt=salt)
         self._next_id += 1
         if adapter_name is not None:
             pool = self.adapter_pool
@@ -346,6 +357,10 @@ class Engine:
         # packs rows with slice copies (one device→host copy, logged)
         req.input_embeds = self.runner.build_input_embeds(req.prompt,
                                                           req.prefix_embeds)
+        if self.cfg.is_encoder_decoder:
+            # into the run slot's encoder K/V, which the slot's next
+            # admission overwrites: a preempted request is re-encoded
+            self.runner.encode(req.frame_embeds, req.run_slot)
         req.state = State.PREFILL
         self.running.append(req)
         return True
@@ -472,23 +487,30 @@ class Engine:
             tr.count("prefill_tokens_total", n_prefill)
 
         # ---- submit --------------------------------------------------
-        t_sub0 = time.perf_counter()
-        asm0 = self.t_assembly + self.runner.t_assembly
-        inflight = self._submit_mixed(decodes, prefills)
-        if tr.enabled and inflight is not None:
-            tr.span("submit", "submit", t_sub0, time.perf_counter(),
-                    self.clock,
-                    {"n_decode": n_decode, "n_prefill": n_prefill,
-                     "t_assembly": self.t_assembly
-                     + self.runner.t_assembly - asm0})
-        if inflight is not None and prev is not None:
-            self.async_overlap_steps += 1
-        if not self.use_async and inflight is not None:
-            self._retire_traced(inflight)
-            inflight = None
-        # ---- retire (async: AFTER step N+1 is in flight) ------------
-        self._retire_traced(prev)
-        self._inflight = inflight
+        if self.use_mixed:
+            t_sub0 = time.perf_counter()
+            asm0 = self.t_assembly + self.runner.t_assembly
+            inflight = self._submit_mixed(decodes, prefills)
+            if tr.enabled and inflight is not None:
+                tr.span("submit", "submit", t_sub0, time.perf_counter(),
+                        self.clock,
+                        {"n_decode": n_decode, "n_prefill": n_prefill,
+                         "t_assembly": self.t_assembly
+                         + self.runner.t_assembly - asm0})
+            if inflight is not None and prev is not None:
+                self.async_overlap_steps += 1
+            if not self.use_async and inflight is not None:
+                self._retire_traced(inflight)
+                inflight = None
+            # ---- retire (async: AFTER step N+1 is in flight) --------
+            self._retire_traced(prev)
+            self._inflight = inflight
+        else:
+            # sequential: every call below runs to completion, so each
+            # token value is host-known when its bookkeeping runs
+            self._execute_decodes(decodes)
+            self._execute_prefills(prefills)
+            self._finish_requests()
         # block starvation with zero progress and the pipeline drained:
         # preempt the most recent running request (recompute-preemption)
         if n_decode == 0 and n_prefill == 0 and prev is None \
@@ -642,10 +664,61 @@ class Engine:
                 r.output_tokens.append(PENDING)
         return patch_idx
 
+    def _postprocess_decode(self, r: Request, tok: int) -> None:
+        """Sequential decode bookkeeping: advance and retire back to back
+        with the host-known token."""
+        patch_idx, boundary_pos, snap_slot = self._advance_decode(r)
+        if patch_idx is not None:
+            r.output_tokens[patch_idx] = tok
+        if boundary_pos is not None:
+            self._register_decode_block(r, boundary_pos, snap_slot)
+
+    def _postprocess_prefill(self, r: Request, lo: int, hi: int,
+                             logits_row: np.ndarray, boundary) -> None:
+        patch_idx = self._advance_prefill(r, lo, hi, boundary)
+        if r.state == State.DECODE and r.t_decode_start is None:
+            r.t_decode_start = self.clock
+        if patch_idx is not None:
+            r.output_tokens[patch_idx] = int(np.argmax(logits_row))
+
     def _adapter_idx(self, r: Request, positions: np.ndarray) -> np.ndarray:
         return adapter_index_for_positions(
             positions, r.adapter_slot,
             r.adapter.kind if r.adapter else None, r.inv_start)
+
+    # ------------------------------------------------------------------
+    # sequential execution: one decode batch and one call per prefill
+    # chunk, each synchronous (the mixed path's equivalence oracle)
+    # ------------------------------------------------------------------
+    def _execute_decodes(self, ok: List[Request]) -> None:
+        if not ok:
+            return
+        positions = np.array([r.n_computed for r in ok], np.int32)
+        t0 = time.perf_counter()
+        logits = self.runner.decode_batch(
+            tokens=np.array([r.all_tokens[r.n_computed] for r in ok],
+                            np.int32),
+            positions=positions, lengths=positions + 1,
+            block_tables=[r.block_ids for r in ok],
+            adapter_idx=np.array([self._adapter_idx(r, positions[i:i + 1])[0]
+                                  for i, r in enumerate(ok)], np.int32),
+            run_slots=np.array([max(r.run_slot, 0) for r in ok], np.int32))
+        self.clock += (time.perf_counter() - t0) * self.ecfg.time_scale
+        for r, t in zip(ok, np.argmax(logits, axis=-1)):
+            self._postprocess_decode(r, int(t))
+
+    def _execute_prefills(self, spans: List[Tuple[Request, int, int]]
+                          ) -> None:
+        for r, lo, hi in spans:
+            t0 = time.perf_counter()
+            logits, boundary = self.runner.prefill_chunk(
+                input_embeds=r.input_embeds, lo=lo, hi=hi,
+                block_ids=r.block_ids if self.kv_mgr is not None else [],
+                adapter_idx_row=self._adapter_idx(r, np.arange(lo, hi)),
+                run_slot=max(r.run_slot, 0))
+            logits = logits.float().cpu().numpy()
+            self.clock += (time.perf_counter() - t0) * self.ecfg.time_scale
+            self._postprocess_prefill(r, lo, hi, logits, boundary)
 
     # ------------------------------------------------------------------
     # mixed-batch execution: every decode token and prefill chunk of the

@@ -1,6 +1,5 @@
 """Request lifecycle (paper Table 2 / Fig. 5), a copy of the reference's
-``repro/serving/request.py`` for text requests and requests with an
-image-patch prefix.
+``repro/serving/request.py``.
 
 A request moves through queue → prefill → decode → done; the boundary
 timestamps define the paper's metrics:
@@ -43,6 +42,7 @@ class Request:
     adapter_slot: int = 0                   # device slot WHILE ADMITTED
     arrival_time: float = 0.0
     prefix_embeds: Optional[np.ndarray] = None   # vlm: (P, d) patch embeds
+    frame_embeds: Optional[np.ndarray] = None    # audio: (Se, d) frames
     salt: Tuple = ()                        # cache salt (content digest)
     state: State = State.QUEUED
     t_prefill_start: Optional[float] = None

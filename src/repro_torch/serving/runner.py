@@ -1,6 +1,6 @@
-"""Paged model runner — the mixed path of the reference's
-``repro/serving/runner.py``, eager PyTorch, for attention (dense or
-mixture-of-experts MLPs), SSM and hybrid stacks.
+"""Paged model runner — the reference's ``repro/serving/runner.py``,
+eager PyTorch, for attention (dense or mixture-of-experts MLPs), SSM,
+hybrid and encoder-decoder stacks.
 
 ``submit_batch`` runs ONE mixed step over every scheduled token (decode
 singletons and prefill chunks packed along one token axis):
@@ -11,8 +11,9 @@ singletons and prefill chunks packed along one token axis):
   3. per attention layer: rmsnorm → ``qkv_project`` with the grouped
      LoRA delta over the step's active adapter slots → RoPE; the K/V
      rows are written into the paged pools in place; ragged paged
-     attention over each token's own request's blocks; ``out_project``,
-     then the MLP (or MoE) sublayer;
+     attention over each token's own request's blocks; ``out_project``;
+     on an encoder-decoder, cross-attention of every row over its own
+     request's encoder K/V; then the MLP (or MoE) sublayer;
   4. per SSM layer: rmsnorm → ``ssd_ragged_forward``: the input
      projection with its adapter delta, the ragged causal conv and the
      ragged SSD scan, each request's live state gathered at its segment
@@ -27,6 +28,20 @@ Only the sampled int32 ids ever cross to the host, in ``fetch_sampled``
 N+1 before it retires step N.  On a card the host staging buffers are
 pinned and double-buffered and every upload is ``non_blocking``.
 
+The sequential execution mode (the reference's oracle of the mixed
+path) runs ``prefill_chunk`` (one call per prefill chunk: the chunk
+attends over its request's cached blocks and itself; SSM layers run the
+chunked ``ssd_forward`` from the live state, with the state at every
+block boundary) and ``decode_batch`` (one call per decode batch: decode
+paged attention, ``ssd_decode_step``).  Their Q/K/V projections are the
+fused aLoRA projection over every adapter slot, and both return whole
+logits to the host, as the reference's do.
+
+``encode`` runs an encoder-decoder's encoder over one request's frame
+embeddings at admission and writes every decoder layer's cross K/V into
+the request's run slot of the encoder pools; every later step reads
+them there, with no per-step or per-token copy.
+
 Pools (device, updated in place):
   k_pool/v_pool:     (La, NB, bs, KV, hd) — the last block is a write
                                             dump for padded rows; none
@@ -34,6 +49,9 @@ Pools (device, updated in place):
   live_ssm/conv:     (Ls, MR, ...)        — per-run-slot SSM state
   snap_ssm/conv:     (Ls, NS, ...)        — block-boundary snapshots
                                             (cross-model state reuse)
+  xk_pool/xv_pool:   (La, MR, KV, Se, hd) — per-run-slot encoder K/V,
+                                            float32 (values in the model
+                                            dtype); enc-dec only
   tok_buf:           (MR,) int32          — last sampled token per run
                                             slot; the last slot is a
                                             dump slot
@@ -42,11 +60,12 @@ The boundary states of a step are a fresh allocation per step, held by
 its ``StepHandle``: the engine submits step N+1 before it retires step
 N, so a buffer reused across steps would be overwritten.  Snapshot
 copies (``snapshot_boundary``, ``snapshot_live``, ``restore_state``,
-``reset_live``) are enqueued on the compute stream, so they read and
-write the pools in step order.
+``reset_live``) and ``encode`` are enqueued on the compute stream, so
+they read and write the pools in step order.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
@@ -59,7 +78,10 @@ from repro_torch.configs.base import ATTN, SSM, ModelConfig
 from repro_torch.models import layers as Lyr
 from repro_torch.models import model as M
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import ragged_paged_attention
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models.attention import (flash_attention,
+                                          packed_cross_attention,
+                                          ragged_paged_attention)
 from repro_torch.obs.tracer import Tracer
 
 
@@ -199,6 +221,11 @@ class ModelRunner:
         AdapterPool's ``layers``, written in place as adapters move
         through slots); None for an adapter-free runner."""
         M.check_supported(cfg)
+        if cfg.ssm is not None and cfg.ssm.chunk_size != rcfg.block_size:
+            # the sequential prefill's SSD chunks end on KV-block
+            # boundaries, so its boundary states are the block snapshots
+            cfg = cfg.replace(ssm=dataclasses.replace(
+                cfg.ssm, chunk_size=rcfg.block_size))
         self.cfg = cfg
         self.rcfg = rcfg
         self.device = resolve_device(device)
@@ -208,7 +235,9 @@ class ModelRunner:
         self.Ls = self.kinds.count(SSM)
         self.window = M.effective_window(cfg)
         self.host_bufs = HostBufferPool(pin=self.device.type == "cuda")
-        self.call_counts = {"mixed_step": 0}
+        # device calls by step function
+        self.call_counts = {"prefill_chunk": 0, "decode_batch": 0,
+                            "mixed_step": 0, "encode": 0}
         # host-side assembly time (bucket padding + staging)
         self.t_assembly = 0.0
         # (elements, dtype, tag) of every blocking device→host fetch
@@ -245,8 +274,56 @@ class ModelRunner:
                                         dtype=torch.float32, device=dev)
             self.snap_conv = torch.zeros((self.Ls, NS) + window,
                                          dtype=dtype, device=dev)
+        self.xk_pool = self.xv_pool = None
+        if cfg.is_encoder_decoder:
+            shape = (self.La, rcfg.max_running, cfg.num_kv_heads,
+                     cfg.encoder_seq_len, cfg.head_dim)
+            self.xk_pool = torch.zeros(shape, dtype=torch.float32, device=dev)
+            self.xv_pool = torch.zeros(shape, dtype=torch.float32, device=dev)
         self.tok_buf = torch.zeros((rcfg.max_running,), dtype=torch.int32,
                                    device=dev)
+
+    # ------------------------------------------------------------------
+    # encoder (encoder-decoder stacks)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def encode(self, frames: np.ndarray, run_slot: int) -> None:
+        """Run the encoder over one request's frame embeddings (Se, d)
+        and write every decoder layer's projected cross K/V into run slot
+        ``run_slot`` of the encoder pools, once per admission."""
+        cfg = self.cfg
+        frames = np.asarray(frames, dtype=np.float32)
+        if frames.shape != (cfg.encoder_seq_len, cfg.d_model):
+            raise ValueError(f"frame embeddings {frames.shape}: "
+                             f"{cfg.name} takes ({cfg.encoder_seq_len}, "
+                             f"{cfg.d_model})")
+        self.call_counts["encode"] += 1
+        fr = torch.from_numpy(frames).to(self.device)
+        enc = M.run_encoder(self.params["encoder"], cfg, fr[None])
+        for ai, (_, lp) in enumerate(M.iter_layers(self.params, cfg)):
+            xk, xv = M.encoder_kv(lp, cfg, enc)
+            self.xk_pool[ai, run_slot].copy_(xk[0].transpose(0, 1))
+            self.xv_pool[ai, run_slot].copy_(xv[0].transpose(0, 1))
+
+    def _cross_attend(self, lp, x: torch.Tensor, ai: int, cross
+                      ) -> torch.Tensor:
+        """Decoder → encoder cross-attention with its residual.  x: (...,
+        d); ``cross`` = (rows, cols, lo, n, n_cols): the query of x's
+        flattened row t sits at cell (rows[t], cols[t]) and attends over
+        the encoder K/V of run slot lo + rows[t] (of run slots lo..lo+n-1,
+        a view of the pools)."""
+        cfg = self.cfg
+        rows, cols, lo, n, n_cols = cross
+        h = Lyr.rmsnorm(x, lp["xln"], cfg.norm_eps)
+        q = (h @ lp["xattn"]["wq"]).reshape(-1, cfg.num_heads, cfg.head_dim)
+        o = packed_cross_attention(q, self.xk_pool[ai, lo:lo + n],
+                                   self.xv_pool[ai, lo:lo + n], rows, cols,
+                                   n_cols)
+        return x + Lyr.out_project(lp["xattn"], cfg, o.reshape(
+            x.shape[:-1] + o.shape[1:]))
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
 
     def build_input_embeds(self, prompt: List[int],
                            prefix_embeds: Optional[np.ndarray] = None
@@ -274,9 +351,11 @@ class ModelRunner:
         return out
 
     # ------------------------------------------------------------------
-    def _assemble_mixed(self, mb: MixedBatch) -> Tuple[torch.Tensor, ...]:
+    def _assemble_mixed(self, mb: MixedBatch):
         """Host half of :meth:`submit_batch`: pad the ragged batch into
-        pow2 buckets in the pooled staging buffers and upload them."""
+        pow2 buckets in the pooled staging buffers and upload them.
+        Returns (the step's tensors, the cross-attention layout of
+        :meth:`_cross_attend` or None)."""
         t_host = time.perf_counter()
         self.host_bufs.flip()
         rc = self.rcfg
@@ -335,19 +414,38 @@ class ModelRunner:
             else np.zeros((0,), np.int32)
         act = take("act", next_pow2(max(len(acts), 1)), np.int32)
         act[:len(acts)] = acts
+        cross = None
+        if self.cfg.is_encoder_decoder:
+            # cross-attention reads the encoder pools' run slots lo..hi-1
+            # in place; row t's query cell is (its slot - lo, its offset
+            # in its segment), padded rows share a spare last column
+            lo = int(run_slots[:R].min())
+            n_cols = next_pow2(int(np.bincount(rows[:T]).max())) + 1
+            xr = take("xr", Tb, np.int32)
+            xr[:T] = tok_slots[:T] - lo
+            xc = take("xc", Tb, np.int32, fill=n_cols - 1)
+            xc[:T] = cols[:T]
+            cross = (xr, xc, lo, int(run_slots[:R].max()) + 1 - lo, n_cols)
         self.t_assembly += time.perf_counter() - t_host
-        return tuple(torch.from_numpy(a).to(self.device, non_blocking=True)
-                     for a in (tok, emb, use, fb, pos, qln, ad, act, bt, rows,
-                               cols, wb, wo, out_rows, run_slots, tok_slots,
-                               snap))
+
+        def upload(a):
+            return torch.from_numpy(a).to(self.device, non_blocking=True)
+
+        meta = tuple(map(upload, (tok, emb, use, fb, pos, qln, ad, act, bt,
+                                  rows, cols, wb, wo, out_rows, run_slots,
+                                  tok_slots, snap)))
+        if cross is not None:
+            cross = (upload(cross[0]), upload(cross[1])) + cross[2:]
+        return meta, cross
 
     def _mixed_impl(self, tok, emb, use, fb, pos, qln, ad, act, bt, rows,
-                    cols, wb, wo, out_rows, run_slots, tok_slots, snap
-                    ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+                    cols, wb, wo, out_rows, run_slots, tok_slots, snap, *,
+                    cross=None) -> Tuple[torch.Tensor, Optional[Tuple]]:
         """The device work of one mixed step (stages 1–5 of the module
         docstring).  Updates the pools and ``tok_buf`` in place and
         returns the (Rb,) int32 sampled ids and the boundary states (a
-        fresh pair per step; None without SSM layers)."""
+        fresh pair per step; None without SSM layers).  ``cross``: the
+        cross-attention layout of :meth:`_cross_attend` (enc-dec)."""
         cfg, p = self.cfg, self.params
         tok = torch.where(fb, self.tok_buf[tok_slots], tok)
         tok_emb = torch.index_select(p["embed"]["tok"], 0, tok)
@@ -387,6 +485,8 @@ class ModelRunner:
             o = ragged_paged_attention(q, self.k_pool[ai], self.v_pool[ai],
                                        bt, rows, qln, window=self.window)
             x = x + Lyr.out_project(lp["attn"], cfg, o)
+            if cross is not None:
+                x = self._cross_attend(lp, x, ai, cross)
             x = M.mlp_sublayer(lp, cfg, x)
             ai += 1
         x = Lyr.rmsnorm(x, p["final_norm"], cfg.norm_eps)
@@ -400,9 +500,9 @@ class ModelRunner:
     def submit_batch(self, mb: MixedBatch) -> StepHandle:
         """Enqueue one mixed step without waiting for it; retire the
         handle with :meth:`fetch_sampled`."""
-        meta = self._assemble_mixed(mb)
+        meta, cross = self._assemble_mixed(mb)
         self.call_counts["mixed_step"] += 1
-        sampled, boundary = self._mixed_impl(*meta)
+        sampled, boundary = self._mixed_impl(*meta, cross=cross)
         return StepHandle(sampled=sampled, n_requests=len(mb.block_tables),
                           boundary=boundary)
 
@@ -417,6 +517,172 @@ class ModelRunner:
     def execute_batch(self, mb: MixedBatch) -> np.ndarray:
         """Synchronous submit + fetch; returns the sampled ids (R,)."""
         return self.fetch_sampled(self.submit_batch(mb))
+
+    # ------------------------------------------------------------------
+    # sequential execution: one call per prefill chunk, one per decode
+    # batch (the reference's oracle of the mixed path)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill_chunk(self, *, input_embeds: np.ndarray, lo: int, hi: int,
+                      block_ids: List[int], adapter_idx_row: np.ndarray,
+                      run_slot: int
+                      ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+        """Prefill tokens [lo, hi) of one request from its host prompt
+        embeddings (S, d), the chunk padded to a pow2 bucket (at least a
+        block) and its table to pow2.  Returns (the logits of token hi-1
+        (Vpad,) on the device, the boundary states (b_ssm (Ls, nc, nh, N,
+        P), b_conv (Ls, nc, W-1, ch)) at the chunk's block ends, None
+        without SSM layers)."""
+        rc, cfg = self.rcfg, self.cfg
+        C = hi - lo
+        Cb = next_pow2(C, lo=min(rc.block_size, rc.chunk_tokens))
+        x = np.zeros((Cb, cfg.d_model), np.float32)
+        x[:C] = input_embeds[lo:hi]
+        nbb = next_pow2(max(len(block_ids), 1))
+        bt = np.full((nbb,), rc.num_blocks - 1, np.int32)
+        bt[:len(block_ids)] = block_ids
+        aidx = np.zeros((Cb,), np.int32)
+        aidx[:C] = adapter_idx_row
+        self.call_counts["prefill_chunk"] += 1
+        return self._prefill_impl(self._tensor(x), C, lo, self._tensor(bt),
+                                  self._tensor(aidx), run_slot)
+
+    def _prefill_impl(self, x, C: int, lo: int, bt, aidx, slot: int):
+        cfg, p, rc = self.cfg, self.params, self.rcfg
+        bs, dev = rc.block_size, self.device
+        Cb = x.shape[0]
+        x = x.to(Lyr.dtype_of(cfg))[None]                    # (1, Cb, d)
+        ar = torch.arange(Cb, device=dev)
+        gpos = lo + ar
+        bids = torch.where(ar < C, bt[(gpos // bs).clamp(max=bt.shape[0] - 1)],
+                           rc.num_blocks - 1).long()
+        offs = gpos % bs
+        cross = (torch.zeros_like(ar), ar, slot, 1, Cb) \
+            if cfg.is_encoder_decoder else None
+        b_ssm, b_conv = [], []
+        ai = si = 0
+        for li, (kind, lp) in enumerate(M.iter_layers(p, cfg)):
+            al = self.adapter_layers[li]
+            if kind == SSM:
+                h = Lyr.rmsnorm(x, lp["ln"], cfg.norm_eps)
+                y, st, cv, (bnd_s, bnd_c) = ssm_lib.ssd_forward(
+                    lp["ssm"], cfg, h, ssm_state=self.live_ssm[si, slot][None],
+                    conv_state=self.live_conv[si, slot][None], alora=al,
+                    adapter_idx=aidx[None], valid_len=C,
+                    return_boundary_states=True)
+                self.live_ssm[si, slot].copy_(st[0])
+                self.live_conv[si, slot].copy_(cv[0])
+                b_ssm.append(bnd_s[:, 0])
+                b_conv.append(bnd_c[:, 0])
+                x = x + y
+                si += 1
+                continue
+            h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = Lyr.qkv_project(lp["attn"], cfg, h, al, aidx[None])
+            q = Lyr.apply_rope(q, gpos[None], cfg.rope_theta)
+            k = Lyr.apply_rope(k, gpos[None], cfg.rope_theta)
+            # the chunk attends over its request's cached tokens [0, lo)
+            # and itself, causally (the reference's ``_chunk_attention``)
+            shape = (1, -1, cfg.num_kv_heads, cfg.head_dim)
+            past_k = self.k_pool[ai][bt.long()].reshape(shape)[:, :lo]
+            past_v = self.v_pool[ai][bt.long()].reshape(shape)[:, :lo]
+            o = flash_attention(q, torch.cat([past_k, k], dim=1),
+                                torch.cat([past_v, v], dim=1),
+                                window=self.window, q_offset=lo)
+            x = x + Lyr.out_project(lp["attn"], cfg, o)
+            self.k_pool[ai].index_put_((bids, offs), k[0])
+            self.v_pool[ai].index_put_((bids, offs), v[0])
+            if cross is not None:
+                x = self._cross_attend(lp, x, ai, cross)
+            x = M.mlp_sublayer(lp, cfg, x)
+            ai += 1
+        x = Lyr.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+        logits = M.logits_for(p, cfg, x[0, max(C - 1, 0)])
+        boundary = (torch.stack(b_ssm), torch.stack(b_conv)) if b_ssm \
+            else None
+        return logits, boundary
+
+    @torch.no_grad()
+    def decode_batch(self, *, tokens: np.ndarray, positions: np.ndarray,
+                     block_tables: List[List[int]], lengths: np.ndarray,
+                     adapter_idx: np.ndarray, run_slots: np.ndarray
+                     ) -> np.ndarray:
+        """One decode step of a batch of requests, padded to pow2 rows
+        (padded rows write the dump block and the dump slot).  Returns
+        the (B, Vpad) float32 logits of the real rows on the host."""
+        rc = self.rcfg
+        B = len(tokens)
+        Bb = next_pow2(B)
+        dump_block, dump_slot = rc.num_blocks - 1, rc.max_running - 1
+        nbb = next_pow2(max(max((len(t) for t in block_tables), default=1),
+                            1))
+        tok = np.zeros((Bb,), np.int32)
+        tok[:B] = tokens
+        pos = np.zeros((Bb,), np.int32)
+        pos[:B] = positions
+        bt = np.full((Bb, nbb), dump_block, np.int32)
+        for i, t in enumerate(block_tables):
+            bt[i, :len(t)] = t
+        ln = np.zeros((Bb,), np.int32)
+        ln[:B] = lengths
+        ad = np.zeros((Bb,), np.int32)
+        ad[:B] = adapter_idx
+        rs = np.full((Bb,), dump_slot, np.int32)
+        rs[:B] = run_slots
+        wb = np.full((Bb,), dump_block, np.int32)
+        wo = np.zeros((Bb,), np.int32)
+        for i in range(B):
+            if block_tables[i]:                  # attention-free: no K/V
+                wb[i] = block_tables[i][positions[i] // rc.block_size]
+                wo[i] = positions[i] % rc.block_size
+        cross = None
+        if self.cfg.is_encoder_decoder:
+            # one query cell per row (padded rows: the spare column 1)
+            lo = int(rs[:B].min())
+            xr = np.zeros((Bb,), np.int32)
+            xr[:B] = rs[:B] - lo
+            xc = np.ones((Bb,), np.int32)
+            xc[:B] = 0
+            cross = (self._tensor(xr), self._tensor(xc), lo,
+                     int(rs[:B].max()) + 1 - lo, 2)
+        self.call_counts["decode_batch"] += 1
+        logits = self._decode_impl(*map(self._tensor, (tok, pos, bt, ln, ad,
+                                                       rs, wb, wo)),
+                                   cross=cross)
+        return logits[:B].float().cpu().numpy()
+
+    def _decode_impl(self, tok, pos, bt, ln, ad, rs, wb, wo, *, cross):
+        cfg, p = self.cfg, self.params
+        x = torch.index_select(p["embed"]["tok"], 0, tok)[:, None, :]
+        rsl = rs.long()
+        ai = si = 0
+        for li, (kind, lp) in enumerate(M.iter_layers(p, cfg)):
+            al = self.adapter_layers[li]
+            if kind == SSM:
+                h = Lyr.rmsnorm(x, lp["ln"], cfg.norm_eps)
+                y, st, cv = ssm_lib.ssd_decode_step(
+                    lp["ssm"], cfg, h, self.live_ssm[si][rsl],
+                    self.live_conv[si][rsl], alora=al, adapter_idx=ad[:, None])
+                self.live_ssm[si].index_copy_(0, rsl, st)
+                self.live_conv[si].index_copy_(0, rsl, cv)
+                x = x + y
+                si += 1
+                continue
+            h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = Lyr.qkv_project(lp["attn"], cfg, h, al, ad[:, None])
+            q = Lyr.apply_rope(q, pos[:, None], cfg.rope_theta)
+            k = Lyr.apply_rope(k, pos[:, None], cfg.rope_theta)
+            self.k_pool[ai].index_put_((wb, wo), k[:, 0])
+            self.v_pool[ai].index_put_((wb, wo), v[:, 0])
+            o = paged_attention(q[:, 0].contiguous(), self.k_pool[ai],
+                                self.v_pool[ai], bt, ln, window=self.window)
+            x = x + Lyr.out_project(lp["attn"], cfg, o[:, None])
+            if cross is not None:
+                x = self._cross_attend(lp, x, ai, cross)
+            x = M.mlp_sublayer(lp, cfg, x)
+            ai += 1
+        x = Lyr.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+        return M.logits_for(p, cfg, x[:, 0])
 
     # ------------------------------------------------------------------
     # SSM state snapshots: in-place copies on the compute stream, so they

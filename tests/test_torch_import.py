@@ -1,7 +1,7 @@
 """The port's package rules: ``repro_torch`` (and ``chip_smoke.py``)
-import neither jax nor the JAX package nor its benchmarks, entry points
-default to the card and raise without one, and unported families raise
-naming their ROADMAP item."""
+import neither jax nor the JAX package nor its benchmarks, every
+configuration of the reference is registered, and entry points default
+to the card and raise without one."""
 import ast
 import os
 import subprocess
@@ -29,7 +29,8 @@ NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.kernels.alora_qkv", "repro_torch.kernels.bench",
                "repro_torch.models.moe", "repro_torch.configs.phi3_5_moe",
                "repro_torch.configs.granite_moe_1b",
-               "repro_torch.configs.phi3_vision_4_2b")
+               "repro_torch.configs.phi3_vision_4_2b",
+               "repro_torch.configs.whisper_large_v3")
 
 
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
@@ -104,26 +105,66 @@ def test_entry_points_default_to_cuda_and_raise_without_it(
         calls[entry]()
 
 
-def test_sequential_mode_raises_naming_roadmap_item(small):
+def test_sequential_engine_defaults_to_cuda_and_raises_without_it(
+        small, monkeypatch):
     cfg, params = small
-    with pytest.raises(NotImplementedError, match="A11"):
-        Engine(cfg, params, device="cpu",
+    Engine(cfg, params, device="cpu",
+           engine_cfg=EngineConfig(execution_mode="sequential"))
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params,
                engine_cfg=EngineConfig(execution_mode="sequential"))
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-large-v3", "A10")])
-def test_unported_configs_raise_naming_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_config(arch)
+def test_unknown_execution_mode_raises(small):
+    cfg, params = small
+    with pytest.raises(ValueError, match="execution_mode"):
+        Engine(cfg, params, device="cpu",
+               engine_cfg=EngineConfig(execution_mode="pipelined"))
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"is_encoder_decoder": True}, "A10d"),
-    ({"frontend": "audio"}, "A10d")])
-def test_unported_families_raise_at_construction(kw, item):
-    cfg = get_reduced("granite-3.2-8b").replace(**kw)
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+def test_whisper_config_is_registered(reduced):
+    cfg = (get_reduced if reduced else get_config)("whisper-large-v3")
+    assert cfg.is_encoder_decoder and cfg.frontend == "audio"
+    check_supported(cfg)
+
+
+@pytest.fixture(scope="module")
+def whisper():
+    cfg = get_reduced("whisper-large-v3")
+    return cfg, init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["engine", "sequential", "runner",
+                                   "init_params"])
+def test_whisper_entry_points_default_to_cuda_and_raise_without_it(
+        whisper, monkeypatch, entry):
+    cfg, params = whisper
+    _no_cuda(monkeypatch)
+    calls = {
+        "engine": lambda: Engine(cfg, params),
+        "sequential": lambda: Engine(
+            cfg, params, engine_cfg=EngineConfig(execution_mode="sequential")),
+        "runner": lambda: ModelRunner(cfg, params, RunnerConfig()),
+        "init_params": lambda: init_params(torch.Generator().manual_seed(0),
+                                           cfg),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_encoder_decoder_needs_encoder_layers_and_frames():
+    cfg = get_reduced("whisper-large-v3").replace(num_encoder_layers=0)
+    with pytest.raises(ValueError, match="encoder"):
         check_supported(cfg)
+    eng = Engine(get_reduced("whisper-large-v3"),
+                 init_params(torch.Generator().manual_seed(0),
+                             get_reduced("whisper-large-v3"), device="cpu"),
+                 device="cpu")
+    with pytest.raises(ValueError, match="frame_embeds"):
+        eng.submit([1, 2, 3], 2)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
