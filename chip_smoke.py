@@ -60,7 +60,10 @@ Phases, each of which exits non-zero on failure:
    its operations; then decode attention and the fused aLoRA projection
    at the sequential step's serving shapes (bf16: granite's, zamba2's
    and whisper's decode batch of 4; their Q projections and granite's
-   K/V width at T = 4, 64 and 128 on one rank-32 adapter slot);
+   K/V width at T = 4, 64 and 128 on one rank-32 adapter slot); then the
+   fused Q/K/V LoRA entry at the vanilla-LoRA baseline's plan (granite's
+   widths, bf16, one rank-8 slot, every row on it: a 128-row prefill
+   chunk and a T = 4 decode step), timed;
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
@@ -109,7 +112,11 @@ Phases, each of which exits non-zero on failure:
    card; then a reduced granite engine
    on the card asked for adapter slot rank 48 holds the LoRA kernel's
    bucket 64 and serves to the end, and one given a rank-300 adapter
-   raises at construction;
+   raises at construction; then the reduced float32 granite behind a
+   two-replica affinity router (the reference router tests' multi-turn
+   trace, 5 sessions × 2 turns, three adapters) on the card and on the
+   CPU — identical placements, tokens, hits and fleet hit rate — and the
+   card's fleet emits one engine's tokens;
 5. the kernel-bench entry point (``repro_torch.kernels.bench``) at full
    width, with every kernel count set to 0 just before and read just
    after: decode attention (granite's GQA, contexts 256–4096, bf16, and
@@ -121,7 +128,29 @@ Phases, each of which exits non-zero on failure:
    against its plain version, its bound and its yardstick (by events and
    by the profiler's device time).  Then a NaN
    written into the block past every length must leave decode
-   attention's output unchanged at the bench's full-width cases.
+   attention's output unchanged at the bench's full-width cases;
+6. the serving tier on granite-3.2-8b at full width, one copy of its
+   random weights on the card: the launcher (``repro_torch.launch.serve``:
+   a warm-up pass and a measured pass of 4 base → adapter → base
+   pipelines, gen 32, eval 16, for the rank-8 vanilla-LoRA baseline and
+   then rank-32 aLoRA, each stage's metrics and the eval speedups) at
+   prompts of 128 and 1,024 tokens, every kernel count set to 0 just
+   before and read just after each: one B1 and one fused B2 call per
+   layer and mixed step, every aLoRA eval reusing the base request's
+   computed full blocks (144 and 1,040 tokens), every LoRA eval none, the
+   final base request reusing the base blocks (unless the LoRA evals
+   evicted them), the aLoRA run's Perfetto JSON and Prometheus text
+   written and parsed back; then two engine replicas sharing the
+   weights (the same ``data_ptr``; ``memory_allocated`` after each)
+   behind the router on the reference router tests' multi-turn trace
+   (5 sessions × 4 turns, prompts of 256+ tokens, base and aLoRA turns
+   alternating) under ``affinity`` (each later turn on its previous
+   turn's replica with a cached prefix; the fleet's trace and counters
+   written and parsed back: one phase process per replica and the
+   router's, reused tokens = ledger = hits × block size), under
+   ``round_robin`` (a lower fleet hit rate) and under ``affinity`` with
+   ``stop_replica(1)`` mid-run (no request lost, re-routes counted), with
+   the wall ms per router step and the merged throughput.
 
 ``PERF.md`` gives its run time on one H100, the kernels' build included.
 
@@ -760,6 +789,52 @@ def check_lora(torch, cfgs, timer, gen):
         print(f"  grouped LoRA {key} (d {d}, out {widths}): max|err| "
               f"{err:.3e} (rel {rel:.3e}, tol {TOL[dtype_name]}; largest "
               f"row rel {row_rel:.3e}){msg}", flush=True)
+        del x, pairs, got, want
+    return res
+
+
+def check_lora_rank8(torch, cfgs, timer, gen):
+    """The vanilla-LoRA baseline's plan of the fused Q/K/V entry (the
+    launcher's LoRA leg, phase 6): granite's widths, bfloat16, one
+    rank-8 slot (the only one, active), every row on it — a 128-row
+    prefill chunk and a T = 4 decode step — within TOL of the plain
+    version, timed beside its bound."""
+    g = cfgs["granite"]
+    widths = (g.num_heads * g.head_dim, g.num_kv_heads * g.head_dim,
+              g.num_kv_heads * g.head_dim)
+    d, r = g.d_model, 8
+    res = {}
+    for T in (128, 4):
+        x = torch.randn((T, d), generator=gen).to("cuda", torch.bfloat16)
+        pairs = []
+        for out in widths:
+            a = torch.randn((2, d, r), generator=gen) / d ** 0.5
+            b = torch.randn((2, r, out), generator=gen) * (0.02 / r ** 0.5)
+            a[0] = 0
+            b[0] = 0
+            pairs.append((a.to("cuda", torch.bfloat16),
+                          b.to("cuda", torch.bfloat16)))
+        idx = torch.ones(T, dtype=torch.int32, device="cuda")
+        act = torch.ones(1, dtype=torch.int32, device="cuda")
+        _, call = lora_call(pairs)
+        got = call(x, pairs, idx, act)
+        want = lora_plain(x, pairs, idx, act)
+        torch.cuda.synchronize()
+        err, rel, row_rel = lora_errors(got, want)
+        if rel > TOL["bfloat16"]:
+            fail(f"grouped LoRA rank 8, all {T} rows on one slot: max|err| "
+                 f"{err} = {rel} of max|plain| > {TOL['bfloat16']}")
+        key = f"bfloat16_qkv_r8_all_T{T}"
+        res[key] = {"d": d, "out": list(widths), "rank": r,
+                    "max_abs_err": err, "rel_err": rel,
+                    "row_rel_err": row_rel, "tol": TOL["bfloat16"],
+                    **time_lora(timer, x, pairs, idx, act, "bfloat16")}
+        e = res[key]
+        print(f"  grouped LoRA {key}: max|err| {err:.3e} (rel {rel:.3e}); "
+              f"kernel {e['ms']:.4f} ms (device " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in e["device_split_ms"].items())
+              + f"), plain {e['plain_ms']:.3f} ms, bound "
+              f"{e['bound_ms']:.5f} ms ({e['bound_by']})", flush=True)
         del x, pairs, got, want
     return res
 
@@ -2125,6 +2200,465 @@ def parity(torch, arch: str, prompt_len: int = 40, mode: str = "mixed"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the serving launcher and the multi-replica fleet
+# ---------------------------------------------------------------------------
+# the launcher's prompt lengths: its default, then one where prefill work
+# dominates
+LAUNCH_PROMPTS = (128, 1024)
+# ``tests/test_router.py::run_trace`` at full width: 4 turns, prompts of
+# 256 + 4 (s % 3) tokens; 5 sessions, as the reference's trace has (with
+# an even count, round robin's cycle would put every session on the same
+# replica each turn, which is affinity's placement too)
+FLEET = dict(sessions=5, turns=4, gen=16, prompt_len=256, seed=3)
+# the drain run stops replica 1 at turn 2, after one router step taken
+# between submitting session 2 and session 3
+FLEET_STOP = (2, 3)
+
+
+@contextlib.contextmanager
+def mixed_steps():
+    """Record every mixed step any engine submits while the block runs:
+    (adapter slot rank, packed tokens, adapted tokens, active slots)."""
+    from repro_torch.serving.runner import ModelRunner
+    orig = ModelRunner.submit_batch
+    steps = []
+
+    def recorded(self, mb):
+        al = self.adapter_layers[0]
+        steps.append((0 if al is None else al["aq"].shape[-1],
+                      len(mb.adapter_idx), int((mb.adapter_idx > 0).sum()),
+                      0 if mb.active_slots is None
+                      else len(mb.active_slots)))
+        return orig(self, mb)
+
+    ModelRunner.submit_batch = recorded
+    try:
+        yield steps
+    finally:
+        ModelRunner.submit_batch = orig
+
+
+def fleet_trace(router, cfg, *, sessions, turns, gen, prompt_len, seed,
+                stop=None):
+    """``tests/test_router.py::run_trace`` on ``router``: turn k+1 extends
+    turn k's prompt + generated tokens + 12 new ones; even turns go to
+    the base model, odd ones to adapters ad0/ad1 by session.  With
+    ``stop=(turn, session)``, one router step is taken before that
+    session of that turn is submitted, and replica 1 is stopped once the
+    turn is submitted.  Returns (router-global ids in submit order,
+    requests re-routed by the stop)."""
+    rng = np.random.RandomState(seed)
+    hi = min(400, cfg.vocab_size)
+    convo = [list(rng.randint(10, hi, prompt_len + 4 * (s % 3)))
+             for s in range(sessions)]
+    gids, moved = [], None
+    for t in range(turns):
+        round_ids = []
+        for s in range(sessions):
+            if stop == (t, s):
+                router.step()
+            adapter = f"ad{s % 2}" if t % 2 else None
+            round_ids.append(router.submit(convo[s], gen,
+                                           adapter_name=adapter))
+        if stop is not None and t == stop[0]:
+            moved = router.stop_replica(1)
+        router.run_until_idle()
+        for s, gid in enumerate(round_ids):
+            out = router.request(gid).output_tokens
+            if len(out) != gen:
+                fail(f"fleet request {gid}: {len(out)} tokens, not {gen}")
+            convo[s] = convo[s] + list(out) + list(rng.randint(10, hi, 12))
+        gids.extend(round_ids)
+    return gids, moved
+
+
+def fleet_parity(torch):
+    """Phase 4's fleet: the reduced float32 granite behind a two-replica
+    affinity router on ``fleet_trace``'s reduced shape (three adapters,
+    B scaled 30x as the reference's router tests scale them), on the card
+    and on the CPU — identical placements, tokens, per-request hits and
+    fleet hit rate — and the card's fleet emits the tokens of one engine
+    on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.alora import AdapterSpec, init_adapter_weights
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.router import Router
+
+    cfg = get_reduced("granite-3.2-8b")
+    gen = torch.Generator().manual_seed(1)
+    params = init_params(gen, cfg, device="cpu")
+    adapters = []
+    for i in range(3):
+        w = init_adapter_weights(gen, cfg, 8, device="cpu")
+        adapters.append((AdapterSpec(f"ad{i}", 8, INV if i % 2 else None),
+                         {seg: {k: v * 30 if k.startswith("b") else v
+                                for k, v in leaves.items()}
+                          for seg, leaves in w.items()}))
+    ecfg = EngineConfig(max_running=4, max_batched_tokens=64,
+                        adapter_slots=2)
+    runs = {}
+    for device, n in (("cuda", 2), ("cpu", 2), ("cuda", 1)):
+        router = Router([Engine(cfg, params, device=device,
+                                adapters=adapters, engine_cfg=ecfg)
+                         for _ in range(n)])
+        gids, _ = fleet_trace(router, cfg, sessions=5, turns=2, gen=5,
+                              prompt_len=24, seed=3)
+        reqs = [router.request(g) for g in gids]
+        runs[device, n] = dict(
+            placements=[(p.req_id, p.replica, p.cached_tokens,
+                         p.adapter_resident, p.via_session)
+                        for p in router.placements],
+            tokens=[r.output_tokens for r in reqs],
+            hits=[r.n_cache_hit_tokens for r in reqs],
+            kv_hits=[e.kv_mgr.hits for e in router.replicas],
+            kv_hit_rate=router.kv_hit_rate())
+    card, cpu = runs["cuda", 2], runs["cpu", 2]
+    if card != cpu:
+        fail(f"the reduced granite fleet: card and CPU disagree: {runs}")
+    if runs["cuda", 1]["tokens"] != card["tokens"]:
+        fail("the reduced granite fleet's tokens differ from one engine's")
+    per = [sum(1 for p in card["placements"] if p[1] == i) for i in (0, 1)]
+    if min(per) == 0:
+        fail(f"the reduced fleet used one replica: {per}")
+    print(f"  reduced granite fleet (2 replicas, affinity): card == CPU "
+          f"({len(card['tokens'])} requests, placements/replica {per}, "
+          f"KV hits {card['kv_hits']}, fleet hit rate "
+          f"{card['kv_hit_rate']:.4f}); fleet == one engine on the card",
+          flush=True)
+    return {"placements_per_replica": per, "kv_hits": card["kv_hits"],
+            "kv_hit_rate": card["kv_hit_rate"],
+            "requests": len(card["tokens"])}
+
+
+def prom_values(text):
+    """Prometheus text → {family: {replica label: value}}."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        series, val = line.rsplit(" ", 1)
+        family, label = series.split("{", 1)
+        out.setdefault(family, {})[label.split('"')[1]] = float(val)
+    return out
+
+
+def check_export(trace_path, prom_path, engines, router=None):
+    """Parse a written Perfetto JSON and Prometheus text back: one phase
+    process per replica with schedule, submit and retire tracks, the
+    router's process exactly when a router ran, and the reused-token
+    counter equal to the ledgers' reused sum and to the prefix caches'
+    hits times the block size."""
+    from repro_torch.obs.export import PID_LIFECYCLE, PID_PHASE, PID_ROUTER
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    procs = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e["name"] == "process_name"}
+    threads = {}
+    for e in events:
+        if e.get("ph") == "M" and e["name"] == "thread_name":
+            threads.setdefault(e["pid"], set()).add(e["args"]["name"])
+    phase = {p for p in procs if PID_PHASE <= p < PID_LIFECYCLE}
+    if phase != set(range(PID_PHASE, PID_PHASE + len(engines))):
+        fail(f"{trace_path}: phase processes {sorted(phase)} for "
+             f"{len(engines)} replicas")
+    for p in phase:
+        if not {"schedule", "submit", "retire"} <= threads.get(p, set()):
+            fail(f"{trace_path}: process {procs[p]!r} lacks a phase track: "
+                 f"{threads.get(p)}")
+    if (PID_ROUTER in procs) != (router is not None):
+        fail(f"{trace_path}: router process {PID_ROUTER in procs}, router "
+             f"ran {router is not None}")
+    prom = prom_values(Path(prom_path).read_text())
+    reused = sum(prom["repro_tokens_reused_total"].values())
+    ledger = sum(r[2] for e in engines for r in e.tracer.ledger)
+    hits = sum(e.kv_mgr.hits for e in engines) * engines[0].ecfg.block_size
+    if not reused == ledger == hits:
+        fail(f"{prom_path}: repro_tokens_reused_total {reused}, ledger "
+             f"{ledger}, kv hits x block size {hits}")
+    if router is not None and prom["repro_placements_total"]["router"] \
+            != len(router.placements):
+        fail(f"{prom_path}: placements counter != the placements log")
+    print(f"  export: {len(events)} Perfetto events in {len(procs)} "
+          f"processes ({', '.join(sorted(procs.values()))}); "
+          f"{len(prom)} counter families; repro_tokens_reused_total "
+          f"{reused:g} = ledger = kv hits x block size", flush=True)
+    return {"events": len(events), "processes": sorted(procs.values()),
+            "counter_families": len(prom), "tokens_reused": reused}
+
+
+def leak_check(engines, what):
+    for e in engines:
+        if e.kv_mgr.num_free() != e.kv_mgr.num_blocks \
+                or any(m.ref for m in e.kv_mgr.meta):
+            fail(f"{what}: KV blocks leaked after the drain")
+
+
+def launcher_path(torch, cfg, params, adapters, prompt_len, tmp):
+    """``repro_torch.launch.serve.serve`` at full width with the
+    launcher's defaults but ``prompt_len`` (4 requests, gen 32, eval 16,
+    one adapter, a warm-up pass and the measured pass for each of LoRA
+    and aLoRA), every kernel count set to 0 just before and read just
+    after: one B1 and one fused B2 call per layer and mixed step; every
+    aLoRA eval reusing the base request's computed full blocks, every
+    LoRA eval none; the final stage reusing the base request's blocks;
+    the aLoRA run's trace and counters written and parsed back."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.serving import fmt_speedups, speedup_table
+    gen_len, eval_len, final_len = 32, 16, 16
+    paths = dict(trace_out=str(tmp / f"alora_p{prompt_len}.json"),
+                 metrics_out=str(tmp / f"alora_p{prompt_len}.prom"))
+    La = cfg.num_layers
+    reset_counts()
+    t0 = time.perf_counter()
+    with mixed_steps() as steps:
+        results = S.serve(cfg, params, adapters, prompt_len=prompt_len,
+                          device="cuda", **paths)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(zip(SERVING, read_counts()))
+    n = len(steps)
+    want = dict(zip(SERVING, (La * n, 0, La * n, 0)))
+    if counts != want:
+        fail(f"launcher p{prompt_len}: launch counts {counts} != {want} for "
+             f"{n} mixed steps of {La} layers")
+    bs = 16
+    # the base request computed K/V for its prompt and all but its last
+    # generated token; its full blocks are what a later request can reuse
+    reusable = (prompt_len + gen_len - 1) // bs * bs
+    vpad = padded_vocab(cfg)
+    out = {"prompt_len": prompt_len, "seconds": seconds, "steps": n,
+           "launches": counts, "reusable_tokens": reusable}
+    for kind in S.KINDS:
+        eng, res = results[kind]
+        stages = {}
+        for stage, want_len in (("base", gen_len), ("eval", eval_len),
+                                ("final", final_len)):
+            ids = getattr(res, f"{stage}_ids")
+            reqs = [eng.request(i) for i in ids]
+            for r in reqs:
+                if len(r.output_tokens) != want_len or not all(
+                        0 <= t < vpad for t in r.output_tokens):
+                    fail(f"launcher {kind} {stage} request {r.req_id}: "
+                         f"{r.output_tokens}")
+            m = res.stage_metrics(eng, stage)
+            stages[stage] = {"hits": [r.n_cache_hit_tokens for r in reqs],
+                             **{k: m.means[k] for k in (
+                                 "queue", "prefill", "decode", "ttft",
+                                 "e2e", "cache_hit_frac")},
+                             "throughput_tok_per_s": m.throughput_tok_per_s}
+            s = stages[stage]
+            print(f"  {kind:5s} {stage:5s} p{prompt_len}: e2e "
+                  f"{s['e2e'] * 1e3:.2f} ms, ttft {s['ttft'] * 1e3:.2f}, "
+                  f"queue {s['queue'] * 1e3:.2f}, prefill "
+                  f"{s['prefill'] * 1e3:.2f}, decode {s['decode'] * 1e3:.2f}"
+                  f", reused tokens {s['hits']}", flush=True)
+        ev, fin = stages["eval"]["hits"], stages["final"]["hits"]
+        if kind == "alora" and min(ev) < reusable:
+            fail(f"launcher p{prompt_len}: an aLoRA eval reused fewer than "
+                 f"{reusable} tokens: {ev}")
+        if kind == "lora" and any(ev):
+            fail(f"launcher p{prompt_len}: a LoRA eval reused tokens: {ev}")
+        # the final base request finds the base request's blocks unless
+        # the evals' allocations evicted them from the pool (the LoRA
+        # evals' own blocks at long prompts)
+        evicted = eng.kv_mgr.evictions
+        if (kind == "alora" or not evicted) and min(fin) < reusable:
+            fail(f"launcher p{prompt_len} {kind}: a final request reused "
+                 f"fewer than {reusable} tokens with {evicted} evictions: "
+                 f"{fin}")
+        if kind == "alora" and evicted:
+            fail(f"launcher p{prompt_len}: the aLoRA leg evicted {evicted} "
+                 "blocks")
+        print(f"  {kind:5s} p{prompt_len}: {evicted} cached blocks evicted "
+              "from the pool", flush=True)
+        leak_check([eng], f"launcher {kind}")
+        stages["evictions"] = evicted
+        out[kind] = stages
+    sp = speedup_table(
+        results["lora"][1].stage_metrics(results["lora"][0], "eval"),
+        results["alora"][1].stage_metrics(results["alora"][0], "eval"))
+    out["eval_speedups"] = sp
+    lora_rows = [(T, a) for r, T, a, _ in steps if r == 8 and a]
+    out["lora_steps_all_128_rows_adapted"] = sum(
+        1 for T, a in lora_rows if T == a == 128)
+    out["lora_adapted_rows"] = sum(a for _, a in lora_rows)
+    print(f"  p{prompt_len}: {n} mixed steps in {seconds:.1f} s (both legs, "
+          f"warm-up passes included); launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f"; LoRA leg: {out['lora_steps_all_128_rows_adapted']} steps "
+          f"with all 128 rows on the rank-8 slot, {out['lora_adapted_rows']}"
+          f" adapted rows; eval speedups (LoRA / aLoRA) {fmt_speedups(sp)}",
+          flush=True)
+    out["export"] = check_export(paths["trace_out"], paths["metrics_out"],
+                                 [results["alora"][0]])
+    del results
+    gc.collect()
+    return out
+
+
+def fleet_path(torch, cfg, params, gen, tmp):
+    """Two replicas over the one set of weights on the card behind the
+    router, on ``fleet_trace`` (``FLEET``) under ``affinity``, under
+    ``round_robin`` and under ``affinity`` with replica 1 stopped mid-run
+    (``FLEET_STOP``), every kernel count set to 0 just before each run
+    and read just after.  Every replica's weights are the caller's
+    tensors (the same ``data_ptr``); the second replica adds its pools,
+    not a copy of the weights; under affinity every later turn lands on
+    its previous turn's replica with a cached prefix; affinity's fleet
+    hit rate is above round robin's; the drain loses no request and
+    counts its re-routes; the fleet's trace and counters are written and
+    parsed back."""
+    from repro_torch.common import tree_leaves
+    from repro_torch.core.alora import AdapterSpec, init_adapter_weights
+    from repro_torch.launch.serve import collect_tracers
+    from repro_torch.obs import prometheus_text, write_perfetto
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.router import Router
+
+    adapters = [(AdapterSpec(f"ad{i}", 32, INV),
+                 init_adapter_weights(gen, cfg, 32, device="cuda"))
+                for i in range(2)]
+    ecfg = EngineConfig(adapter_slots=2)
+    ptrs = [t.data_ptr() for t in tree_leaves(params)]
+    La = cfg.num_layers
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_allocated()]
+    out = {}
+    for name, policy, stop in (("affinity", "affinity", None),
+                               ("round_robin", "round_robin", None),
+                               ("drain", "affinity", FLEET_STOP)):
+        engines = []
+        for _ in range(2):
+            engines.append(Engine(cfg, params, adapters=adapters,
+                                  engine_cfg=ecfg, device="cuda"))
+            torch.cuda.synchronize()
+            if name == "affinity":
+                mem.append(torch.cuda.memory_allocated())
+        for e in engines:
+            if [t.data_ptr() for t in tree_leaves(e.runner.params)] != ptrs:
+                fail("a replica holds its own copy of the weights")
+        router = Router(engines, policy=policy)
+        step_ms = []
+        orig = router.step
+
+        def timed_step(orig=orig, step_ms=step_ms):
+            t0 = time.perf_counter()
+            r = orig()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        router.step = timed_step
+        reset_counts()
+        t0 = time.perf_counter()
+        with mixed_steps() as steps:
+            gids, moved = fleet_trace(router, cfg, stop=stop, **FLEET)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(zip(SERVING, read_counts()))
+        want = dict(zip(SERVING, (La * len(steps), 0, La * len(steps), 0)))
+        if counts != want:
+            fail(f"fleet {name}: launch counts {counts} != {want}")
+        leak_check(engines, f"fleet {name}")
+        per = [sum(1 for p in router.placements if p.replica == i)
+               for i in range(2)]
+        agg = router.metrics_for(gids)
+        r = out[name] = {
+            "policy": policy, "requests": len(gids), "seconds": seconds,
+            "mixed_steps": len(steps), "router_steps": len(step_ms),
+            "router_step_ms_mean": statistics.mean(step_ms),
+            "router_step_ms_median": statistics.median(step_ms),
+            "placements_per_replica": per,
+            "kv_hit_rate": router.kv_hit_rate(),
+            "kv_hits": [e.kv_mgr.hits for e in engines],
+            "throughput_tok_per_s": agg.throughput_tok_per_s,
+            "tok_per_req_s": agg.tok_per_req_s,
+            "launches": counts, "reroutes": router.reroutes}
+        print(f"  fleet {name}: {len(gids)} requests, {len(step_ms)} router "
+              f"steps, wall ms per router step mean "
+              f"{r['router_step_ms_mean']:.2f} median "
+              f"{r['router_step_ms_median']:.2f}; placements/replica {per}; "
+              f"fleet kv_hit_rate {r['kv_hit_rate']:.4f} (hits "
+              f"{r['kv_hits']}); merged throughput "
+              f"{r['throughput_tok_per_s']:.1f} tok/s (virtual clock); "
+              f"{seconds:.1f} s; launches " + ", ".join(
+                  f"{k} {v}" for k, v in counts.items()), flush=True)
+        if name == "affinity":
+            n = FLEET["sessions"]
+            pl = router.placements
+            for i in range(n, len(pl)):
+                if pl[i].replica != pl[i - n].replica \
+                        or pl[i].cached_tokens <= 0:
+                    fail(f"fleet affinity: turn {i // n} of session "
+                         f"{i % n} left its replica or found no cached "
+                         f"prefix: {pl[i - n]} -> {pl[i]}")
+            tp, mp_ = tmp / "fleet.json", tmp / "fleet.prom"
+            trs = collect_tracers(router)
+            write_perfetto(str(tp), trs)
+            mp_.write_text(prometheus_text(trs))
+            r["export"] = check_export(tp, mp_, engines, router)
+        if name == "drain":
+            after = router.placements[(FLEET_STOP[0] + 1)
+                                      * FLEET["sessions"]:]
+            if not moved or router.reroutes != moved:
+                fail(f"fleet drain: re-routed {moved}, reroutes "
+                     f"{router.reroutes}")
+            if any(p.replica == 1 for p in after) or not engines[1].idle:
+                fail("fleet drain: work was placed on the stopped replica")
+            r["rerouted"] = moved
+            print(f"  fleet drain: stop_replica(1) re-routed {moved} queued "
+                  f"requests, every request reached {FLEET['gen']} tokens",
+                  flush=True)
+        del router, engines, orig
+        gc.collect()
+    if not out["affinity"]["kv_hit_rate"] > out["round_robin"]["kv_hit_rate"]:
+        fail(f"fleet: affinity's hit rate {out['affinity']['kv_hit_rate']} "
+             f"is not above round robin's {out['round_robin']['kv_hit_rate']}")
+    out["memory_gb"] = {"before": mem[0] / 1e9, "one_replica": mem[1] / 1e9,
+                        "two_replicas": mem[2] / 1e9}
+    added = [(b - a) / 1e9 for a, b in zip(mem, mem[1:])]
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) / 1e9
+    if max(added) > weights_gb / 2:
+        fail(f"a replica added {max(added):.2f} GB, a copy of the weights "
+             f"({weights_gb:.2f} GB)")
+    print(f"  memory_allocated: {mem[0] / 1e9:.3f} GB with the weights and "
+          f"adapters, {mem[1] / 1e9:.3f} after 1 replica, {mem[2] / 1e9:.3f} "
+          f"after 2 (each adds {added[0]:.3f} / {added[1]:.3f} GB: its pools;"
+          f" the weights are {weights_gb:.2f} GB, shared)", flush=True)
+    return out
+
+
+def serving_tier(torch):
+    """Phase 6: granite-3.2-8b at full width, random weights from a seed,
+    one copy on the card: the launcher at each of ``LAUNCH_PROMPTS``,
+    then the two-replica fleet."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models.model import init_params
+    cfg = get_config("granite-3.2-8b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(gen, cfg, device="cuda")
+    adapters = {kind: S.init_adapters(gen, cfg, kind, device="cuda")
+                for kind in S.KINDS}
+    out = {"launcher": {}}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        for p in LAUNCH_PROMPTS:
+            print(f" [6] launcher, --prompt-len {p}", flush=True)
+            out["launcher"][p] = launcher_path(torch, cfg, params, adapters,
+                                               p, tmp)
+        print(" [6] fleet of 2 replicas", flush=True)
+        out["fleet"] = fleet_path(torch, cfg, params, gen, tmp)
+    del params, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def bench_path(torch):
     """Phase 5: the kernel-bench entry point at full width, every kernel
     count set to 0 just before and read just after.  Each of its three
@@ -2287,6 +2821,7 @@ def main() -> None:
     attn = check_attention(torch, cfgs, timer, gen)
     attn_edges = check_attention_edges(torch, gen)
     lora = check_lora(torch, cfgs, timer, gen)
+    lora_r8 = check_lora_rank8(torch, cfgs, timer, gen)
     lora_edges = check_lora_edges(torch, cfgs, gen)
     scan = check_ssd_scan(torch, timer, gen)
     scan_edges = check_scan_edges(torch, gen)
@@ -2318,6 +2853,7 @@ def main() -> None:
     # past the reduced starcoder2's 128-token window
     par["starcoder2-3b"] = parity(torch, "starcoder2-3b", prompt_len=150)
     par["slot_rank"] = slot_rank_card(torch)
+    par["granite-3.2-8b/fleet"] = fleet_parity(torch)
     # the sequential mode on the card against the CPU, then against the
     # mixed run on the card
     for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
@@ -2336,6 +2872,16 @@ def main() -> None:
 
     print("[5] kernel bench entry point, full width", flush=True)
     bres, blaunch, bsec = bench_path(torch)
+
+    print("[6] serving launcher and 2-replica fleet, full width",
+          flush=True)
+    tier = serving_tier(torch)
+    tier_launches = {
+        name: {**{f"launcher_p{p}": r["launches"][name]
+                  for p, r in tier["launcher"].items()},
+               **{f"fleet_{k}": tier["fleet"][k]["launches"][name]
+                  for k in ("affinity", "round_robin", "drain")}}
+        for name in ("ragged_paged_attention", "ragged_grouped_lora_qkv")}
 
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
@@ -2405,7 +2951,8 @@ def main() -> None:
                 "ragged_paged_attention"],
             decode_attention_device_ms_per_step_whisper=mp[ENCDEC_ARCH][
                 "decode_profile"]["attention_device_ms_per_step"],
-            edge_rel_err=attn_edges),
+            edge_rel_err=attn_edges,
+            launches_serving_tier=tier_launches["ragged_paged_attention"]),
         kernel_entry(
             "ragged_grouped_lora", "src/repro_torch/csrc/ragged_lora.cu",
             "src/repro/kernels/ragged_lora.py:82",
@@ -2461,7 +3008,11 @@ def main() -> None:
                 "ragged_grouped_lora_qkv"],
             launches_per_step_whisper=mp[ENCDEC_ARCH]["launches_per_step"][
                 "ragged_grouped_lora_qkv"],
-            edge_rel_err=lora_edges),
+            edge_rel_err=lora_edges,
+            rank8_all_rows={k: {f: v for f, v in e.items()
+                                if f not in ("bytes", "ops")}
+                            for k, e in lora_r8.items()},
+            launches_serving_tier=tier_launches["ragged_grouped_lora_qkv"]),
         kernel_entry(
             "ragged_ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk.cu",
             "src/repro/kernels/ssd_chunk.py:178",
@@ -2507,7 +3058,7 @@ def main() -> None:
     ]
     print(json.dumps({"main_path": mp, "parity": par, "moe_layer": moe_layer,
                       "sequential_kernels": seq_kernels,
-                      "bench": bres,
+                      "bench": bres, "serving_tier": tier,
                       "bench_seconds": bsec, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

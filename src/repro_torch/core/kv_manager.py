@@ -100,3 +100,10 @@ class BlockManager:
     def release_all(self, bids: List[int]) -> None:
         for b in bids:
             self.release(b)
+
+    def hit_rate(self) -> float:
+        tot = self.hits + self.misses
+        return self.hits / tot if tot else 0.0
+
+    def reset_stats(self) -> None:
+        self.hits = self.misses = self.evictions = 0

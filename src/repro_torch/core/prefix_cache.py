@@ -99,3 +99,7 @@ class PrefixCache:
     def register_state(self, h: BlockHash, slot: int) -> int:
         """Register a state snapshot at the boundary hashed ``h``."""
         return self.state.register(slot, h)
+
+    def hit_rate(self) -> float:
+        mgr = self.kv if self.kv is not None else self.state
+        return mgr.hit_rate()

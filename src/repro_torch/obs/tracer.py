@@ -25,6 +25,14 @@ from typing import Any, Dict, List, Optional, Tuple
 TRACE_RING_MAX = 65536
 TRACE_RING_KEEP = 32768
 
+# event-record and ledger-record field order (the schema
+# ``repro_torch.obs.export`` renders)
+EVENT_FIELDS = ("kind", "track", "name", "t0", "t1", "vclock", "args")
+LEDGER_FIELDS = ("req_id", "adapter_uid", "reused", "recomputed",
+                 "state_reused", "vclock")
+# track vocabulary (one Perfetto thread per track)
+TRACKS = ("schedule", "submit", "retire", "pool", "router", "lifecycle")
+
 EventRec = Tuple[str, str, str, float, float, Optional[float],
                  Optional[Dict[str, Any]]]
 LedgerRec = Tuple[int, Optional[str], int, int, bool, Optional[float]]
@@ -36,7 +44,7 @@ def trace_enabled_default() -> bool:
 
 
 class Tracer:
-    """Bounded-ring trace recorder (one per engine)."""
+    """Bounded-ring trace recorder (one per engine or router)."""
 
     def __init__(self, enabled: Optional[bool] = None, replica: int = 0):
         self.enabled = trace_enabled_default() if enabled is None \
@@ -46,6 +54,11 @@ class Tracer:
         self.ledger: List[LedgerRec] = []
         self.counters: Dict[str, float] = {}
         self.dropped = 0
+
+    def set_replica(self, replica: int) -> None:
+        """Stamp this tracer's fleet position (the router assigns these
+        so per-replica Perfetto tracks line up with placement events)."""
+        self.replica = replica
 
     def _append(self, ring: List[Any], rec: Any) -> None:
         if len(ring) >= TRACE_RING_MAX:

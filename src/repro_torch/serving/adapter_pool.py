@@ -369,6 +369,16 @@ class AdapterPool:
     def occupancy(self) -> int:
         return self.num_slots - len(self._free)
 
+    def pinned_slots(self) -> int:
+        return sum(1 for r in self._by_uid.values()
+                   if r.slot is not None and r.pins > 0)
+
+    def residency(self) -> Dict[str, bool]:
+        """Name → device-resident (installed in a slot) snapshot: the
+        router's adapter-residency signal."""
+        return {name: self._by_uid[uid].slot is not None
+                for name, uid in self._by_name.items()}
+
     def affinity_of(self, uid: str) -> int:
         """Admission-affinity class: 2 resident, 1 staged, 0 host-only."""
         reg = self._by_uid[uid]
@@ -377,6 +387,12 @@ class AdapterPool:
         if reg.device_layers is not None:
             return 1
         return 0
+
+    def affinity(self, name: str) -> int:
+        """Name-keyed :meth:`affinity_of` (0 for unknown names): the
+        router's placement signal."""
+        uid = self._by_name.get(name)
+        return 0 if uid is None else self.affinity_of(uid)
 
     def can_take_slot(self) -> bool:
         """Would an install find a free slot or an unpinned victim now?"""

@@ -44,8 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.activation_mask import (adapter_index_for_positions,
                                               find_invocation_start)
 from repro_torch.core.alora import AdapterSpec
-from repro_torch.core.block_hash import (block_extra, hash_block,
-                                         request_block_hashes)
+from repro_torch.core.block_hash import (AdapterKey, block_extra,
+                                         hash_block, request_block_hashes)
 from repro_torch.core.kv_manager import BlockManager, OutOfBlocks
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.models.model import check_supported
@@ -63,6 +63,13 @@ from repro_torch.serving.runner import (MixedBatch, ModelRunner,
 # token's VALUE is still on the device (patched at retire); its position
 # already counts for scheduling.  Never a valid vocab id.
 PENDING = -1
+
+
+def _activation_start(prompt: Sequence[int], spec: AdapterSpec) -> int:
+    """Where an aLoRA request's adapter activates: its last invocation
+    sequence, or the end of the prompt when the sequence is absent."""
+    inv = find_invocation_start(prompt, spec.invocation_tokens)
+    return len(prompt) if inv is None else inv
 
 
 @dataclass
@@ -262,10 +269,7 @@ class Engine:
             req.adapter_uid = uid       # stable cache identity; the
             req.adapter_slot = 0        # device slot is pinned at admission
             if ra.spec.kind == "alora":
-                inv = find_invocation_start(req.prompt,
-                                            ra.spec.invocation_tokens)
-                # invocation sequence absent -> activate at end of prompt
-                req.inv_start = len(req.prompt) if inv is None else inv
+                req.inv_start = _activation_start(req.prompt, ra.spec)
         if req.arrival_time <= self.clock:
             self.waiting.append(req)
         else:
@@ -968,3 +972,66 @@ class Engine:
                 if r.req_id == req_id:
                     return r
         raise KeyError(req_id)
+
+    def kv_hit_rate(self) -> float:
+        mgr = self.kv_mgr or self.st_mgr
+        return mgr.hit_rate()
+
+    # ------------------------------------------------------------------
+    # replica surface (serving/router.py): read-only placement probes,
+    # host-side Python over scheduler state — no device work, no
+    # refcount, hit or miss counter touched
+    # ------------------------------------------------------------------
+    @property
+    def idle(self) -> bool:
+        """No live work anywhere in the pipeline (queued or admitted).
+        A request stays in ``running`` until the step carrying its last
+        token retires, so an async step in flight keeps this False."""
+        return not (self.pending or self.waiting or self.running)
+
+    def cached_prefix_tokens(self, prompt: Sequence[int],
+                             adapter_name: Optional[str] = None,
+                             salt: Tuple = ()) -> int:
+        """How many leading prompt tokens this replica's prefix cache
+        could serve, were the request admitted here: the chained
+        base-aligned block hashes admission matches on, walked with
+        non-acquiring lookups."""
+        if self.cache is None:
+            return 0
+        prompt = list(map(int, prompt))
+        key: Optional[AdapterKey] = None
+        if adapter_name is not None:
+            pool = self.adapter_pool
+            if pool is None:
+                raise KeyError(adapter_name)
+            uid = pool.uid_of(adapter_name)
+            spec = pool.get(uid).spec
+            inv = _activation_start(prompt, spec) \
+                if spec.kind == "alora" else 0
+            key = AdapterKey(uid, spec.kind, inv)
+        # as at admission, the last prompt token is always recomputed
+        return self.cache.probe(prompt[:-1], key, salt)
+
+    def outstanding_tokens(self) -> int:
+        """Uncomputed prompt plus ungenerated output over every queued
+        and admitted request: the router's least-loaded tiebreak."""
+        n = 0
+        for r in self.pending:
+            n += len(r.prompt) + r.max_new_tokens
+        for r in self.waiting:
+            n += len(r.prompt) + r.max_new_tokens
+        for r in self.running:
+            n += max(len(r.prompt) - r.n_computed, 0)
+            n += max(r.max_new_tokens - len(r.output_tokens), 0)
+        return n
+
+    def adapter_residency(self) -> Dict[str, bool]:
+        """Adapter name → installed in a device slot."""
+        pool = self.adapter_pool
+        return {} if pool is None else pool.residency()
+
+    def adapter_affinity(self, name: str) -> int:
+        """2 slot-resident, 1 staged on the device, 0 host-only or
+        unknown: the graded residency the router scores with."""
+        pool = self.adapter_pool
+        return 0 if pool is None else pool.affinity(name)

@@ -65,6 +65,10 @@ class Request:
     input_embeds: Any = None                # (S, d) float32 numpy, host
 
     @property
+    def seq_len(self) -> int:
+        return len(self.prompt) + len(self.output_tokens)
+
+    @property
     def all_tokens(self) -> List[int]:
         return self.prompt + self.output_tokens
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.alora import init_adapter_weights
+from repro_torch.launch import serve
 from repro_torch.models.model import check_supported, init_params
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.serving.adapter_pool import AdapterPool
@@ -30,7 +31,9 @@ NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.models.moe", "repro_torch.configs.phi3_5_moe",
                "repro_torch.configs.granite_moe_1b",
                "repro_torch.configs.phi3_vision_4_2b",
-               "repro_torch.configs.whisper_large_v3")
+               "repro_torch.configs.whisper_large_v3",
+               "repro_torch.serving.router", "repro_torch.obs.export",
+               "repro_torch.launch", "repro_torch.launch.serve")
 
 
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
@@ -56,7 +59,7 @@ def test_import_loads_neither_jax_nor_repro():
         "assert not bad, bad\n"
         f"missing = set({NEW_MODULES!r}) - set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 26, names\n")
+        "assert len(names) >= 30, names\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -88,7 +91,8 @@ def small():
 
 
 @pytest.mark.parametrize("entry", ["engine", "runner", "pool",
-                                   "init_params", "init_adapter"])
+                                   "init_params", "init_adapter",
+                                   "build_engine", "launcher_adapters"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         small, monkeypatch, entry):
     cfg, params = small
@@ -100,6 +104,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(
         "pool": lambda: AdapterPool(cfg, num_slots=1, slot_rank=8),
         "init_params": lambda: init_params(gen, cfg),
         "init_adapter": lambda: init_adapter_weights(gen, cfg, 8),
+        "build_engine": lambda: serve.build_engine(cfg, params, [],
+                                                   replicas=2),
+        "launcher_adapters": lambda: serve.init_adapters(gen, cfg, "alora"),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
