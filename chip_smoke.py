@@ -6,8 +6,11 @@
 Phases, each of which exits non-zero on failure:
 
 1. card and setup: the card's name and power limit, the torch/CUDA
-   versions, TF32 off, and the build of the CUDA kernels from
-   ``src/repro_torch/csrc`` (timed);
+   versions, TF32 off, the build of the CUDA kernels from
+   ``src/repro_torch/csrc`` (timed), and the port's static analyzer
+   (``python -m repro_torch.analysis``: the hot-path lint and the
+   resource-lifecycle check over ``repro_torch/{serving,kernels,obs}``;
+   any violation fails);
 2. every kernel against its plain PyTorch version on the same card
    tensors, at the main paths' shapes, with times (CUDA events, L2
    flushed before each launch), the least time the card could take for
@@ -150,7 +153,23 @@ Phases, each of which exits non-zero on failure:
    router's, reused tokens = ledger = hits × block size), under
    ``round_robin`` (a lower fleet hit rate) and under ``affinity`` with
    ``stop_replica(1)`` mid-run (no request lost, re-routes counted), with
-   the wall ms per router step and the merged throughput.
+   the wall ms per router step and the merged throughput;
+7. the paper's benches and examples through their entry points
+   (``repro_torch.benchmarks``, ``repro_torch.examples``), each leg's
+   launches counted (B1 and B2's fused entry once per attention layer of
+   a mixed step, B3 once per SSM layer, B2's one-pair entry once per SSM
+   layer of a mixed step or a sequential call) with its wall seconds,
+   mixed steps and mean wall ms a mixed step: (a) every bench's
+   ``--smoke`` leg on the reduced float32 models with every reference
+   assert (Figs. 11, 15, 10 and 8/9 at their first sweep point, §4.4.1,
+   adapter churn against the sequential oracle, the Zipf leg's FCFS
+   oracle against the affinity scheduler, sequential / mixed / async
+   mixed with the 2 % tracing budget, the router at R = 1 and 2, and
+   mamba2's mixed-batch leg); (b) every bench at full width on
+   granite-3.2-8b in bf16 (random weights from a seed, one copy on the
+   card), one warm-up and one measured pass, with the sweep points and
+   the Zipf trace cut to ``FULL_SWEEPS`` and ``ZIPF_FULL``; (c) the
+   three examples on the same weights.
 
 ``PERF.md`` gives its run time on one H100, the kernels' build included.
 
@@ -163,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2704,6 +2724,220 @@ def bench_path(torch):
     return res, launches, seconds
 
 
+def analyzer(root):
+    """Phase 1: the port's static analyzer (``python -m
+    repro_torch.analysis``: the hot-path lint and the resource-lifecycle
+    check, pure AST) over the checkout's tree; any violation fails."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--out", str(root / "results" / "torch")],
+                         cwd=root, env={**os.environ,
+                                        "PYTHONPATH": str(root / "src")},
+                         capture_output=True, text=True, timeout=300)
+    print("  " + out.stdout.strip().replace("\n", "; ")
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if out.returncode:
+        fail(f"python -m repro_torch.analysis exited {out.returncode}:\n"
+             + out.stderr)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the paper's benches and examples (repro_torch.benchmarks,
+# repro_torch.examples)
+# ---------------------------------------------------------------------------
+# full-width sweep points: the reference's lists, cut to keep the phase
+# near four minutes (PERF.md lists the cuts)
+FULL_SWEEPS = dict(fig11=dict(prompt_lens=[192]), fig15=dict(batches=[4]),
+                   fig10=dict(gen_lens=[16]), fig8=dict(rates=[16.0]),
+                   router=dict(fleet_sizes=(4,)))
+# Zipf at full width: 128 registrations (a rank-32 granite adapter holds
+# ~47 MB of pinned host memory; the reference's 1,000 would be ~47 GB)
+# and 32 of the trace's 300 requests
+ZIPF_FULL = dict(n_adapters=128, n_requests=32)
+
+
+def bench_legs(smoke: bool):
+    """(name, arch, call) of every bench leg on the card: each bench's
+    ``--smoke`` form, or its full form with the ``FULL_SWEEPS`` /
+    ``ZIPF_FULL`` cuts."""
+    from repro_torch.benchmarks import (bench_adapter_base, bench_async,
+                                        bench_batch_size,
+                                        bench_generation_length,
+                                        bench_mixed_batch,
+                                        bench_multi_adapter, bench_router)
+    g, m2 = "granite-3.2-8b", "mamba2-2.7b"
+    kw = dict(smoke=smoke, device="cuda")
+    sw = (lambda k: {}) if smoke else FULL_SWEEPS.get
+    zipf = {} if smoke else ZIPF_FULL
+    legs = [
+        ("fig11", g, lambda: bench_adapter_base.run(**kw, **sw("fig11"))),
+        ("fig15", g, lambda: bench_batch_size.run(**kw, **sw("fig15"))),
+        ("fig10", g, lambda: bench_generation_length.run(**kw,
+                                                         **sw("fig10"))),
+        ("fig8", g, lambda: bench_async.run(**kw, **sw("fig8"))),
+        ("sec441", g, lambda: bench_multi_adapter.run(device="cuda")),
+        ("churn", g, lambda: bench_multi_adapter.run_churn(**kw)),
+        ("zipf", g, lambda: bench_multi_adapter.run_zipf(**kw, **zipf)),
+        ("mixed_batch", g, lambda: bench_mixed_batch.run(
+            **kw, async_leg=True, trace_check=True)),
+        ("router", g, lambda: bench_router.run(**kw, **sw("router"))),
+    ]
+    if smoke:
+        # the reference CI's SSM leg
+        legs.append(("mixed_batch_mamba2", m2, lambda: bench_mixed_batch.run(
+            m2, **kw)))
+    return legs
+
+
+@contextlib.contextmanager
+def logit_margin(torch):
+    """The smallest top-1 minus top-2 logit of every row any step computes
+    while the block runs (``out[0]``, a card tensor, read once at the
+    end): where it is 0.0 the greedy token is a tie, and bf16 runs that
+    differ only in rounding may pick either."""
+    from repro_torch.models import model as M
+    orig = M.logits_for
+    out = [None]
+
+    def margins(params, cfg, hidden):
+        logits = orig(params, cfg, hidden)
+        top = torch.topk(logits.float().reshape(-1, logits.shape[-1]), 2,
+                         dim=-1).values
+        m = (top[:, 0] - top[:, 1]).min()
+        out[0] = m if out[0] is None else torch.minimum(out[0], m)
+        return logits
+
+    M.logits_for = margins
+    try:
+        yield out
+    finally:
+        M.logits_for = orig
+
+
+@contextlib.contextmanager
+def step_walls():
+    """While the block runs: the wall time of every ``Engine.step`` that
+    submitted a mixed step (``walls``; its length is the mixed steps
+    taken) and the sequential mode's calls (``seq[0]``)."""
+    from repro_torch.serving.engine import Engine
+    orig = Engine.step
+    walls, seq = [], [0]
+
+    def timed(self):
+        cc = self.runner.call_counts
+        n0, s0 = cc["mixed_step"], cc["prefill_chunk"] + cc["decode_batch"]
+        t0 = time.perf_counter()
+        out = orig(self)
+        if cc["mixed_step"] > n0:
+            walls.append(time.perf_counter() - t0)
+        seq[0] += cc["prefill_chunk"] + cc["decode_batch"] - s0
+        return out
+
+    Engine.step = timed
+    try:
+        yield walls, seq
+    finally:
+        Engine.step = orig
+
+
+def run_leg(torch, name, arch, call, tag, reduced=False):
+    """One bench leg, its launches counted: on every mixed step B1 and
+    B2's fused entry launch once per attention layer, B3 once per SSM
+    layer, and B2's one-pair entry once per SSM layer of a mixed step or
+    a sequential call (checked here for every leg; the benches check the
+    mixed steps of each measured pass)."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.base import ATTN, SSM
+    kinds = list((get_reduced if reduced else get_config)(arch).pattern())
+    La, Ls = kinds.count(ATTN), kinds.count(SSM)
+    before = dict(zip(SERVING, read_counts()))
+    t0 = time.perf_counter()
+    with step_walls() as (walls, seq), logit_margin(torch) as margin:
+        rows = call()
+        torch.cuda.synchronize()
+    margin = float("nan") if margin[0] is None else float(margin[0])
+    seconds = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in zip(SERVING, read_counts())}
+    n = len(walls)
+    want = {"ragged_paged_attention": La * n, "ragged_grouped_lora_qkv":
+            La * n, "ragged_grouped_lora": Ls * (n + seq[0]),
+            "ragged_ssd_chunk_scan": Ls * n}
+    if got != want or n == 0:
+        fail(f"phase 7 {tag} {name}: launches {got} over {n} mixed steps, "
+             f"expected {want}")
+    ms = 1e3 * statistics.fmean(walls)
+    print(f"  [7{tag}] {name}: {seconds:.1f} s wall, {n} mixed steps, "
+          f"{ms:.2f} ms mean wall a mixed step, launches a step: "
+          + ", ".join(f"{k} {v // n}" for k, v in got.items() if v)
+          + f"; smallest top-1/top-2 logit margin {margin:.3e}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "mixed_steps": n, "step_wall_ms": ms,
+            "sequential_calls": seq[0], "min_top2_logit_margin": margin,
+            "launches": got,
+            # a bench's CSV rows (an example returns no rows)
+            "rows": {k: {"us": r["us"], "derived": r["derived"]}
+                     for k, r in rows.items()} if isinstance(rows, dict)
+            and all(isinstance(r, dict) and "us" in r for r in rows.values())
+            else {}}
+
+
+def full_width_adapters(torch, cfg):
+    """Adapter ``i`` at ``rank`` of full width, drawn anew from seed
+    100 + i on the card at every registration."""
+    from repro_torch.core.alora import init_adapter_weights
+
+    def weights(rank, i):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        return init_adapter_weights(gen, cfg, rank, device="cuda")
+    return weights
+
+
+def paper_benches(torch):
+    """Phase 7: (a) every bench's ``--smoke`` leg on the reduced float32
+    models, with every reference assert; (b) every bench at full width on
+    granite-3.2-8b in bf16 (random weights from a seed, one copy on the
+    card), one warm-up and one measured pass each; (c) the three examples
+    on the same weights."""
+    from repro_torch.benchmarks import common
+    from repro_torch.configs import get_config
+    from repro_torch.examples import async_poisson, quickstart, \
+        serve_multiturn
+    from repro_torch.models.model import init_params
+    out = {"smoke": {}, "full": {}, "examples": {}}
+    print(" [7a] every bench's --smoke leg, reduced float32 models",
+          flush=True)
+    for name, arch, call in bench_legs(smoke=True):
+        out["smoke"][name] = run_leg(torch, name, arch, call, "a",
+                                     reduced=True)
+    common.uninstall()
+
+    cfg = get_config("granite-3.2-8b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(gen, cfg, device="cuda")
+    adapters = full_width_adapters(torch, cfg)
+    common.install("granite-3.2-8b", cfg, params, adapters)
+    print(" [7b] every bench at full width, granite-3.2-8b bf16 (cuts: "
+          f"{FULL_SWEEPS}, zipf {ZIPF_FULL})", flush=True)
+    for name, arch, call in bench_legs(smoke=False):
+        out["full"][name] = run_leg(torch, name, arch, call, "b")
+    common.uninstall()
+
+    print(" [7c] the examples at full width", flush=True)
+    model = (cfg, params, lambda rank: adapters(rank, 0))
+    for ex in (quickstart, serve_multiturn, async_poisson):
+        name = ex.__name__.rsplit(".", 1)[-1]
+        out["examples"][name] = run_leg(
+            torch, name, "granite-3.2-8b",
+            lambda: ex.main(device="cuda", model=model), "c")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full_sweeps"] = FULL_SWEEPS
+    out["zipf_full"] = ZIPF_FULL
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, steps, check, **extra):
     """One entry of the ``kernels`` line: the fields every kernel has,
     then what is particular to it."""
@@ -2804,6 +3038,7 @@ def main() -> None:
     _, log = build.build()
     build.load()
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    analyzer(ROOT)
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
@@ -2882,6 +3117,16 @@ def main() -> None:
                **{f"fleet_{k}": tier["fleet"][k]["launches"][name]
                   for k in ("affinity", "round_robin", "drain")}}
         for name in ("ragged_paged_attention", "ragged_grouped_lora_qkv")}
+
+    print("[7] paper benches and examples", flush=True)
+    reset_counts()
+    benches = paper_benches(torch)
+    bench_launches = {name: fn.launches for name, fn in counted().items()}
+    print("  phase 7 launches: " + ", ".join(
+        f"{k} {v}" for k, v in bench_launches.items()), flush=True)
+    for name in SERVING + ("paged_attention", "alora_qkv"):
+        if bench_launches[name] == 0:
+            fail(f"phase 7 never launched {name}")
 
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
@@ -3056,9 +3301,12 @@ def main() -> None:
                         edges, "granite_bf16_T512",
                         others=("granite_bf16_T128", "granite_f32_T128"))),
     ]
+    for entry in kernels:
+        entry["launches_paper_benches"] = bench_launches[entry["name"]]
     print(json.dumps({"main_path": mp, "parity": par, "moe_layer": moe_layer,
                       "sequential_kernels": seq_kernels,
                       "bench": bres, "serving_tier": tier,
+                      "paper_benches": benches,
                       "bench_seconds": bsec, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,3 +31,8 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_reduced(arch_id: str) -> ModelConfig:
     return _module(arch_id).reduced()
+
+
+def list_archs() -> list:
+    """Every registered architecture id."""
+    return list(_MODULES)

@@ -514,11 +514,15 @@ class Engine:
             # token value is host-known when its bookkeeping runs
             self._execute_decodes(decodes)
             self._execute_prefills(prefills)
+            # phase: retire-ok (sequential oracle path)
             self._finish_requests()
         # block starvation with zero progress and the pipeline drained:
         # preempt the most recent running request (recompute-preemption)
         if n_decode == 0 and n_prefill == 0 and prev is None \
                 and self.running:
+            # drain-guarded: prev is None means no unretired step is in
+            # flight, so no PENDING value can race the rollback
+            # phase: retire-ok (pipeline drained)
             self._preempt(self.running[-1])
         return self.clock - t_before
 
@@ -633,6 +637,7 @@ class Engine:
                             for t in r.all_tokens[len(r.hashes) * bs:pos])
                 cached = False
                 if known and not self.use_async:
+                    # phase: retire-ok (sync path, tokens host-known)
                     self._extend_hash_chain(r, b)
                     cached = self.st_mgr.lookup(r.hashes[b]) is not None
                 if not cached:

@@ -200,6 +200,9 @@ class HostBufferPool:
 
     def take(self, name: str, n: int, dtype, *, trailing: Tuple[int, ...] = (),
              fill=0) -> np.ndarray:
+        """A view of ``n`` rows of buffer ``name`` of this generation, set
+        to ``fill`` (None: left as it was, for a caller that overwrites
+        every element)."""
         key = (name, trailing, np.dtype(dtype).str, self._gen)
         buf = self._bufs.get(key)
         if buf is None or buf.shape[0] < n:
@@ -209,7 +212,8 @@ class HostBufferPool:
                               pin_memory=self.pin).numpy()
             self._bufs[key] = buf
         view = buf[:n]
-        view[...] = fill
+        if fill is not None:
+            view[...] = fill
         return view
 
 
@@ -292,13 +296,23 @@ class ModelRunner:
         and write every decoder layer's projected cross K/V into run slot
         ``run_slot`` of the encoder pools, once per admission."""
         cfg = self.cfg
-        frames = np.asarray(frames, dtype=np.float32)
-        if frames.shape != (cfg.encoder_seq_len, cfg.d_model):
-            raise ValueError(f"frame embeddings {frames.shape}: "
-                             f"{cfg.name} takes ({cfg.encoder_seq_len}, "
-                             f"{cfg.d_model})")
+        shape = (cfg.encoder_seq_len, cfg.d_model)
+        if np.shape(frames) != shape:
+            raise ValueError(f"frame embeddings {np.shape(frames)}: "
+                             f"{cfg.name} takes {shape}")
         self.call_counts["encode"] += 1
-        fr = torch.from_numpy(frames).to(self.device)
+        # staged in the pinned host pool and uploaded without waiting:
+        # encode runs at admission, while the previous step may still be
+        # on the device.  One buffer per run slot, so the admissions of
+        # one step never share one.  An admission always submits a step
+        # in its iteration (mixed: each submit flips the pool; sequential:
+        # each call syncs), so the slot's buffer of this generation is
+        # next written two submits on, after the step that followed this
+        # upload has retired — the pool's double-buffer rule.
+        buf = self.host_bufs.take(f"frames{run_slot}", shape[0], np.float32,
+                                  trailing=shape[1:], fill=None)
+        buf[...] = frames
+        fr = torch.from_numpy(buf).to(self.device, non_blocking=True)
         enc = M.run_encoder(self.params["encoder"], cfg, fr[None])
         for ai, (_, lp) in enumerate(M.iter_layers(self.params, cfg)):
             xk, xv = M.encoder_kv(lp, cfg, enc)
@@ -338,9 +352,10 @@ class ModelRunner:
         reference.  The patches are rounded to the model dtype first, so
         that after the step's cast they equal the reference's
         ``pe.astype(emb.dtype)``."""
-        ids = torch.as_tensor(prompt, dtype=torch.int64, device=self.device)
+        ids = torch.as_tensor(  # hotpath: sync-ok (once per admission)
+            prompt, dtype=torch.int64, device=self.device)
         emb = torch.index_select(self.params["embed"]["tok"], 0, ids)
-        out = emb.float().cpu().numpy()
+        out = emb.float().cpu().numpy()  # hotpath: sync-ok (as above)
         log_d2h(self.d2h_fetches, int(out.size), str(out.dtype), "admit",
                 self.tracer)
         if prefix_embeds is not None:

@@ -36,6 +36,7 @@ from repro_torch.serving import Engine, EngineConfig
 torch.set_num_threads(1)
 
 INV = (7, 8, 9)
+INV2 = (8, 9, 10)
 ARCHS = ["granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b", "whisper-large-v3"]
 
 
@@ -81,25 +82,36 @@ def summary(eng, ids):
             m.num_free() != m.num_blocks or any(b.ref for b in m.meta))])
 
 
+@functools.lru_cache(maxsize=None)
+def converted(arch):
+    """(cfg_j, cfg, reference weights, port weights, adapters): rank-8
+    aLoRA adapters "uq" (key 7) and "uq2" (key 8) in both packages."""
+    cfg_j, cfg = jax_reduced(arch), get_reduced(arch)
+    # jitted: the same weights for both packages, drawn faster than eagerly
+    pj = jax.jit(functools.partial(jax_init, cfg=cfg_j))(jax.random.key(0))
+    params = params_from_jax(jax.tree.map(np.asarray, pj), cfg, "cpu")
+    ads = []
+    for name, key, inv in (("uq", 7, INV), ("uq2", 8, INV2)):
+        aj = jax_adapter(jax.random.key(key), cfg_j, 8)
+        ads.append(((JSpec(name, 8, inv), aj), (AdapterSpec(name, 8, inv),
+                    adapters_from_jax(jax.tree.map(np.asarray, aj), cfg,
+                                      "cpu"))))
+    return cfg_j, cfg, pj, params, ads
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def runs(request):
     """The reference's sequential engine, the port's sequential engine and
     the port's mixed engine on the same converted weights and rank-8
     aLoRA adapter "uq"."""
-    arch = request.param
-    cfg_j, cfg = jax_reduced(arch), get_reduced(arch)
-    # jitted: the same weights for both packages, drawn faster than eagerly
-    pj = jax.jit(functools.partial(jax_init, cfg=cfg_j))(jax.random.key(0))
-    aj = jax_adapter(jax.random.key(7), cfg_j, 8)
-    params = params_from_jax(jax.tree.map(np.asarray, pj), cfg, "cpu")
-    at = adapters_from_jax(jax.tree.map(np.asarray, aj), cfg, "cpu")
+    cfg_j, cfg, pj, params, ads = converted(request.param)
+    (jspec, aj), (spec, at) = ads[0]
     out = {}
-    jeng = JEngine(cfg_j, pj, adapters=[(JSpec("uq", 8, INV), aj)],
+    jeng = JEngine(cfg_j, pj, adapters=[(jspec, aj)],
                    engine_cfg=JEngineConfig(execution_mode="sequential"))
     out["reference"] = summary(jeng, traffic(jeng))
     for mode in ("sequential", "mixed"):
-        eng = Engine(cfg, params, device="cpu",
-                     adapters=[(AdapterSpec("uq", 8, INV), at)],
+        eng = Engine(cfg, params, device="cpu", adapters=[(spec, at)],
                      engine_cfg=EngineConfig(execution_mode=mode))
         out[mode] = summary(eng, traffic(eng))
     return cfg, out
@@ -135,3 +147,61 @@ def test_sequential_reuses_and_drains(runs):
     assert seq["calls"]["encode"] == (
         len(seq["tokens"]) + seq["preemptions"] if cfg.is_encoder_decoder
         else 0)
+
+
+# block pressure: 8 blocks of 16 for three 64-token prompts, two running
+PRESSURE = dict(num_blocks=8, max_running=2, num_state_slots=6,
+                adapter_slots=1)
+
+
+def pressure_traffic(eng):
+    """Three 64-token requests, the first on the base model and the
+    others on aLoRA adapters "uq" and "uq2" sharing one adapter slot
+    (each with its invocation tokens), whisper's on their own audio."""
+    cfg = eng.cfg
+    rng = np.random.RandomState(5)
+    rids = []
+    for i, name in enumerate((None, "uq", "uq2")):
+        kw = {}
+        if cfg.is_encoder_decoder:
+            fr = (np.random.RandomState(20 + i).randn(
+                cfg.encoder_seq_len, cfg.d_model) * 0.02).astype(np.float32)
+            kw = dict(frame_embeds=fr, salt=(i,))
+        inv = [] if name is None else list(INV if name == "uq" else INV2)
+        prompt = list(rng.randint(10, cfg.vocab_size, 64 - len(inv))) + inv
+        rids.append(eng.submit(prompt, 4, adapter_name=name, **kw))
+    eng.run_until_idle()
+    return rids
+
+
+@pytest.mark.parametrize("arch", ["granite-3.2-8b", "zamba2-2.7b",
+                                  "whisper-large-v3"])
+def test_sequential_under_block_pressure_and_churn(arch):
+    """The reference's ``test_mixed_equals_sequential_preemption_archs``
+    with the two adapters cycling through one slot: the port's
+    sequential engine equals the reference's (tokens, hits, pools,
+    preemptions, call counts) and the port's mixed engine (tokens),
+    preempts on the block-bearing stacks, evicts the adapter slot, and
+    leaks no block, state slot, run slot or adapter pin."""
+    cfg_j, cfg, pj, params, ads = converted(arch)
+    jeng = JEngine(cfg_j, pj, adapters=[a for a, _ in ads],
+                   engine_cfg=JEngineConfig(execution_mode="sequential",
+                                            **PRESSURE))
+    want = summary(jeng, pressure_traffic(jeng))
+    got = {}
+    for mode in ("sequential", "mixed"):
+        eng = Engine(cfg, params, device="cpu", adapters=[p for _, p in ads],
+                     engine_cfg=EngineConfig(execution_mode=mode,
+                                             **PRESSURE))
+        got[mode] = summary(eng, pressure_traffic(eng))
+        assert got[mode]["leaked"] == []
+        assert sorted(eng._free_slots) == list(range(PRESSURE[
+            "max_running"]))
+        assert eng.adapter_pool.pinned_slots() == 0
+        assert eng.adapter_pool_stats().evictions > 0
+    assert got["sequential"] == want
+    assert got["mixed"]["tokens"] == want["tokens"]
+    assert got["mixed"]["preemptions"] == want["preemptions"]
+    assert all(len(t) == 4 for t in want["tokens"])
+    if eng.runner.La:                # block-bearing stacks must starve
+        assert want["preemptions"] > 0

@@ -8,6 +8,8 @@ after the drain.  Then, on the port alone, the state-reuse check of the
 reference's ``test_ssm_state_reuse_exact``: with the prefix cache on the
 eval request restores a snapshot and reuses tokens, and emits the same
 tokens as with the cache off."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -34,9 +36,8 @@ ARCHS = ["mamba2-2.7b", "zamba2-2.7b"]
 PIPE = dict(prompt_len=32, gen_len=4, eval_len=2, batch=2)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def arch(request):
-    name = request.param
+@functools.lru_cache(maxsize=None)
+def _weights(name):
     cfg_j = jax_reduced(name)
     cfg = get_reduced(name)
     pj = jax_init(jax.random.key(0), cfg_j)
@@ -46,6 +47,11 @@ def arch(request):
         params=params_from_jax(jax.tree.map(np.asarray, pj), cfg, "cpu"),
         ad=adapters_from_jax(jax.tree.map(np.asarray, aj), cfg, "cpu"),
         ref={})
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return _weights(request.param)
 
 
 def _ref_run(a, async_on):
@@ -113,3 +119,38 @@ def test_state_reuse_is_exact(arch):
     assert outs[0] == outs[1]
     assert hits[0][0] > 0 and hits[0][1]
     assert hits[1] == (0, False)
+
+
+@pytest.mark.parametrize("async_on", [True, False], ids=["async", "sync"])
+def test_zamba2_under_block_pressure(async_on):
+    """The hybrid under block and state-slot pressure (8 blocks of 16, 6
+    snapshot slots, two running, three 64-token requests, base and aLoRA):
+    recompute-preemption runs through ``_preempt`` and the finishes
+    through ``_finish_requests``; tokens, reused tokens, preemptions and
+    both pools' counters equal the reference's, and nothing leaks."""
+    a = _weights("zamba2-2.7b")
+    kw = dict(num_blocks=8, num_state_slots=6, max_running=2,
+              async_submission=async_on)
+    rng = np.random.RandomState(4)
+    prompts = [list(rng.randint(10, a["cfg"].vocab_size, 61)) + list(INV)
+               for _ in range(3)]
+    jeng = JEngine(a["cfg_j"], a["pj"], engine_cfg=JConfig(**kw),
+                   adapters=[(JSpec("uq", 8, INV), a["aj"])])
+    eng = _port(a, **kw)
+    runs = []
+    for e in (jeng, eng):
+        rids = [e.submit(p, 4, adapter_name="uq" if i % 2 else None)
+                for i, p in enumerate(prompts)]
+        e.run_until_idle()
+        runs.append(([e.request(r).output_tokens for r in rids],
+                     [e.request(r).n_cache_hit_tokens for r in rids],
+                     e.preemptions,
+                     [(m.hits, m.misses, m.evictions)
+                      for m in (e.kv_mgr, e.st_mgr)]))
+    assert runs[0] == runs[1]
+    assert eng.preemptions > 0
+    for mgr in (eng.kv_mgr, eng.st_mgr):
+        assert sum(m.ref for m in mgr.meta) == 0
+        assert mgr.num_free() == mgr.num_blocks
+    assert sorted(eng._free_slots) == [0, 1]
+    assert eng.adapter_pool.pinned_slots() == 0

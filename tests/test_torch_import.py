@@ -33,7 +33,22 @@ NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.configs.phi3_vision_4_2b",
                "repro_torch.configs.whisper_large_v3",
                "repro_torch.serving.router", "repro_torch.obs.export",
-               "repro_torch.launch", "repro_torch.launch.serve")
+               "repro_torch.launch", "repro_torch.launch.serve",
+               "repro_torch.analysis", "repro_torch.analysis.__main__",
+               "repro_torch.analysis.hotpath_lint",
+               "repro_torch.analysis.lifecycle_check",
+               "repro_torch.benchmarks", "repro_torch.benchmarks.common",
+               "repro_torch.benchmarks.bench_adapter_base",
+               "repro_torch.benchmarks.bench_async",
+               "repro_torch.benchmarks.bench_batch_size",
+               "repro_torch.benchmarks.bench_generation_length",
+               "repro_torch.benchmarks.bench_mixed_batch",
+               "repro_torch.benchmarks.bench_multi_adapter",
+               "repro_torch.benchmarks.bench_router",
+               "repro_torch.benchmarks.run", "repro_torch.examples",
+               "repro_torch.examples.quickstart",
+               "repro_torch.examples.serve_multiturn",
+               "repro_torch.examples.async_poisson")
 
 
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
@@ -64,6 +79,8 @@ def test_import_loads_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+    # importing ran no entry point (__main__, the benches, the examples)
+    assert out.stdout == "", out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
