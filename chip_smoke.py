@@ -165,11 +165,23 @@ Phases, each of which exits non-zero on failure:
    adapter churn against the sequential oracle, the Zipf leg's FCFS
    oracle against the affinity scheduler, sequential / mixed / async
    mixed with the 2 % tracing budget, the router at R = 1 and 2, and
-   mamba2's mixed-batch leg); (b) every bench at full width on
-   granite-3.2-8b in bf16 (random weights from a seed, one copy on the
-   card), one warm-up and one measured pass, with the sweep points and
-   the Zipf trace cut to ``FULL_SWEEPS`` and ``ZIPF_FULL``; (c) the
-   three examples on the same weights.
+   mamba2's mixed-batch leg); (b) every bench at granite-3.2-8b's full
+   width, depth cut to ``PAPER_LAYERS``, in bf16 (random weights from a
+   seed, one copy on the card), one warm-up and one measured pass, with
+   the sweep points and the Zipf trace cut to ``FULL_SWEEPS`` and
+   ``ZIPF_FULL``; (c) the three examples on the same weights;
+8. the full-sequence model and training (``repro_torch.models.model``'s
+   ``forward_full``, ``prefill_to_decode_caches`` and ``decode_step``,
+   ``repro_torch.training``), each kernel count set to 0 just before each
+   run and read just after: B6 against its plain version at T = 2,048
+   and 2; granite-3.2-8b at full width and depth with four aLoRA
+   adapters (``forward_full`` and 16 ``decode_step``s, B6 120 launches
+   each); mamba2-2.7b at full width and depth (B5 64 launches a no-grad
+   ``forward_full`` and 0 under grad, B2's one-pair entry 64 on an
+   adapted one, each held against its plain version on that run's
+   inputs); ten AdamW steps at granite's widths x 16 layers; and the
+   reduced float32 models card == CPU (forward, greedy decode, a train
+   step, int8 caches, the engine against ``decode_step``).
 
 ``PERF.md`` gives its run time on one H100, the kernels' build included.
 
@@ -1179,9 +1191,9 @@ def check_bench_edges(torch):
     and 6144 (off the 128/192-column tiles), ranks 8 and 32, with NaN in
     A[0], B[0] and an adapter no row is on, and rows on the indices -1 and
     n: the NaN must change no output; the scan at S 70 and 130 (off its
-    32- and 64-token chunks), P 40 (off its 16-column warp slices), N 32,
-    64 and 128, with Bt * H = 6 (P cut into slices) and 140 (whole-P
-    blocks).  Within TOL of max |plain|, of each row for attention.
+    32- and 64-token chunks), P 40 (off its 16-column warp slices), N 16
+    (the reduced SSM models'), 32, 64 and 128, with Bt * H = 6 (P cut
+    into slices) and 140 (whole-P blocks).  Within TOL of max |plain|, of each row for attention.
     Returns {case: relative error}."""
     from repro_torch.kernels import alora_qkv, bench, ssd_chunk
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1246,7 +1258,7 @@ def check_bench_edges(torch):
                     print(f"  {key}: {rel:.3e} of max|plain| (tol {tol}); "
                           f"tiles {p.bm} x {p.bn}, grid {p.grid}; NaN "
                           "held", flush=True)
-    for N in (32, 64, 128):
+    for N in (16, 32, 64, 128):
         for S in (70, 130):
             for H in (3, 70):
                 case = bench.ssd_case(gen, "cuda", Bt=2, S=S, H=H, P=40, N=N,
@@ -2754,6 +2766,10 @@ FULL_SWEEPS = dict(fig11=dict(prompt_lens=[192]), fig15=dict(batches=[4]),
 # ~47 MB of pinned host memory; the reference's 1,000 would be ~47 GB)
 # and 32 of the trace's 300 requests
 ZIPF_FULL = dict(n_adapters=128, n_requests=32)
+# (b) and (c) run granite-3.2-8b's widths at 20 of its 40 layers: the
+# phase is host-bound (a mixed step's wall grows with its launches, about
+# 25 per layer), and at 40 layers it took 262-314 s of the smoke's time
+PAPER_LAYERS = 20
 
 
 def bench_legs(smoke: bool):
@@ -2840,15 +2856,14 @@ def step_walls():
         Engine.step = orig
 
 
-def run_leg(torch, name, arch, call, tag, reduced=False):
-    """One bench leg, its launches counted: on every mixed step B1 and
-    B2's fused entry launch once per attention layer, B3 once per SSM
-    layer, and B2's one-pair entry once per SSM layer of a mixed step or
-    a sequential call (checked here for every leg; the benches check the
-    mixed steps of each measured pass)."""
-    from repro_torch.configs import get_config, get_reduced
+def run_leg(torch, name, cfg, call, tag):
+    """One bench leg on the model of config ``cfg``, its launches counted:
+    on every mixed step B1 and B2's fused entry launch once per attention
+    layer, B3 once per SSM layer, and B2's one-pair entry once per SSM
+    layer of a mixed step or a sequential call (checked here for every
+    leg; the benches check the mixed steps of each measured pass)."""
     from repro_torch.configs.base import ATTN, SSM
-    kinds = list((get_reduced if reduced else get_config)(arch).pattern())
+    kinds = list(cfg.pattern())
     La, Ls = kinds.count(ATTN), kinds.count(SSM)
     before = dict(zip(SERVING, read_counts()))
     t0 = time.perf_counter()
@@ -2898,9 +2913,10 @@ def paper_benches(torch):
     models, with every reference assert; (b) every bench at full width on
     granite-3.2-8b in bf16 (random weights from a seed, one copy on the
     card), one warm-up and one measured pass each; (c) the three examples
-    on the same weights."""
+    on the same weights.  (b) and (c) keep granite's widths at
+    ``PAPER_LAYERS`` layers."""
     from repro_torch.benchmarks import common
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced
     from repro_torch.examples import async_poisson, quickstart, \
         serve_multiturn
     from repro_torch.models.model import init_params
@@ -2908,19 +2924,20 @@ def paper_benches(torch):
     print(" [7a] every bench's --smoke leg, reduced float32 models",
           flush=True)
     for name, arch, call in bench_legs(smoke=True):
-        out["smoke"][name] = run_leg(torch, name, arch, call, "a",
-                                     reduced=True)
+        out["smoke"][name] = run_leg(torch, name, get_reduced(arch), call,
+                                     "a")
     common.uninstall()
 
-    cfg = get_config("granite-3.2-8b")
+    cfg = get_config("granite-3.2-8b").replace(num_layers=PAPER_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(gen, cfg, device="cuda")
     adapters = full_width_adapters(torch, cfg)
     common.install("granite-3.2-8b", cfg, params, adapters)
-    print(" [7b] every bench at full width, granite-3.2-8b bf16 (cuts: "
-          f"{FULL_SWEEPS}, zipf {ZIPF_FULL})", flush=True)
-    for name, arch, call in bench_legs(smoke=False):
-        out["full"][name] = run_leg(torch, name, arch, call, "b")
+    print(" [7b] every bench at full width, granite-3.2-8b bf16 at "
+          f"{PAPER_LAYERS} layers (cuts: {FULL_SWEEPS}, zipf {ZIPF_FULL})",
+          flush=True)
+    for name, _, call in bench_legs(smoke=False):
+        out["full"][name] = run_leg(torch, name, cfg, call, "b")
     common.uninstall()
 
     print(" [7c] the examples at full width", flush=True)
@@ -2928,13 +2945,690 @@ def paper_benches(torch):
     for ex in (quickstart, serve_multiturn, async_poisson):
         name = ex.__name__.rsplit(".", 1)[-1]
         out["examples"][name] = run_leg(
-            torch, name, "granite-3.2-8b",
-            lambda: ex.main(device="cuda", model=model), "c")
+            torch, name, cfg, lambda: ex.main(device="cuda", model=model),
+            "c")
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
     out["full_sweeps"] = FULL_SWEEPS
     out["zipf_full"] = ZIPF_FULL
+    out["layers"] = PAPER_LAYERS
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the full-sequence model and training (repro_torch.models.model's
+# forward_full / decode_step, repro_torch.training)
+# ---------------------------------------------------------------------------
+GRANITE_FULL = dict(B=2, S=1024, act=512, decode=16, rank=32, adapters=4)
+# granite's first decode_step against forward_full in bf16 at 40 layers,
+# a fixed limit of max |forward_full|: sound decoding reads 4.62e-2, the
+# bf16 rounding floor of the same forward (row 0 alone vs in the batch)
+# 4.05e-2 (PERF.md, section 6); a wrong position or cache is off by O(1).
+# The float32 check at granite's widths x 4 layers (TOL) is the tight one.
+GRANITE_BF16_DECODE_TOL = 6e-2
+MAMBA_FULL = dict(B=2, S=2048, grad_S=512)
+TRAIN_FULL = dict(layers=16, B=4, S=1024, steps=10, mem_layers=2)
+PARITY_FULL = ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
+               "whisper-large-v3", "granite-moe-1b-a400m",
+               "phi-3-vision-4.2b", "starcoder2-3b")
+
+
+def wall_ms(torch, fn, n: int = 1) -> float:
+    """Host ms per call of ``fn`` over ``n`` calls ending in a
+    synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def param_bytes(torch, tree) -> int:
+    from repro_torch.common import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def check_full_b6(torch, timer):
+    """B6 (the fused aLoRA projection) at the full-sequence model's shapes
+    on granite-3.2-8b (bf16, four rank-32 adapters beside the zero slot):
+    ``forward_full``'s T = B * S = 2,048 rows and ``decode_step``'s T = 2,
+    for the Q (4096 -> 4096) and K/V (4096 -> 1024) widths, against
+    ``alora_qkv_ref`` with NaN in slot 0's A and B (the kernel and the
+    plain version skip it), timed beside the bound and the base GEMM."""
+    from repro_torch.kernels import alora_qkv, bench
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dt, tol = torch.bfloat16, TOL["bfloat16"]
+    res = {}
+    for T in (2048, 2):
+        for proj, out in (("q", 4096), ("kv", 1024)):
+            case = bench.alora_case(gen, "cuda", dt, T=T, d=4096, out=out,
+                                    n=5, r=32, name=f"granite_{proj}_T{T}")
+            x, w, a, b, idx = case.args
+            a[0] = float("nan")
+            b[0] = float("nan")
+            got = alora_qkv.alora_qkv(*case.args)
+            want = alora_qkv.alora_qkv_ref(*case.args)
+            torch.cuda.synchronize()
+            r = bench.errors(got, want, False)
+            key = f"alora_qkv/{case.name}"
+            if not r["finite"] or r["rel_err"] > tol:
+                fail(f"{key}: finite {r['finite']}, {r['rel_err']} of "
+                     f"max|plain| > {tol}")
+            p = alora_qkv.plan(T, 4096, out, 32, 5, dt)
+            r.update(shape=case.shape, dtype="bfloat16", tol=tol,
+                     ms=timer(lambda: alora_qkv.alora_qkv(*case.args)),
+                     plain_ms=timer(lambda: alora_qkv.alora_qkv_ref(
+                         *case.args)),
+                     base_gemm_ms=timer(lambda: torch.matmul(x, w)),
+                     library_ms=None, tiles=[p.bm, p.bn], grid=list(p.grid))
+            r["bound_ms"], r["bound_by"] = bench.bound_ms(case.nbytes,
+                                                          case.ops, dt)
+            res[key] = r
+            print(f"  {key} ({case.shape}, NaN in slot 0): "
+                  f"{r['rel_err']:.3e} of max|plain| (tol {tol}); kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, base "
+                  f"GEMM {r['base_gemm_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}); tiles "
+                  f"{p.bm} x {p.bn}, grid {p.grid}", flush=True)
+            del case, got, want, x, w, a, b, idx
+    return res
+
+
+def full_granite(torch):
+    """granite-3.2-8b at full width and depth (bf16, random weights from a
+    seed, four rank-32 aLoRA adapters): ``forward_full`` on B = 2 rows of
+    1,024 tokens with caches, row 0 on the base weights and row 1 on
+    adapter 1 from token 512 (B6 exactly 3 x 40 times; row 0 equal to the
+    adapter-free forward within bf16 tolerance), then
+    ``prefill_to_decode_caches`` and 16 ``decode_step``s (B6 120 times a
+    step; the first step's logits equal ``forward_full``'s over the
+    prefix and that token within ``GRANITE_BF16_DECODE_TOL``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.alora import init_adapter_weights, stack_adapters
+    from repro_torch.kernels.alora_qkv import alora_qkv
+    from repro_torch.models import model as M
+    g = GRANITE_FULL
+    cfg = get_config("granite-3.2-8b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(gen, cfg, device="cuda")
+    st = stack_adapters(cfg, [init_adapter_weights(gen, cfg, g["rank"],
+                                                   device="cuda")
+                              for _ in range(g["adapters"])], g["rank"])
+    B, S, nd = g["B"], g["S"], g["decode"]
+    toks = torch.randint(10, cfg.vocab_size, (B, S + nd), generator=gen,
+                         device="cuda")
+    aidx = torch.zeros((B, S + nd), dtype=torch.int32, device="cuda")
+    aidx[1, g["act"]:] = 1
+    La = cfg.num_layers
+    out = {"B": B, "S": S, "layers": La, "adapters": g["adapters"],
+           "rank": g["rank"]}
+    with torch.no_grad():
+        def fwd():
+            return M.forward_full(params, cfg, toks[:, :S], adapters=st,
+                                  adapter_idx=aidx[:, :S],
+                                  return_caches=True)
+        h, _, caches = fwd()                      # warm-up (plans, cuBLAS)
+        torch.cuda.synchronize()
+        alora_qkv.launches = 0
+        out["forward_ms"] = wall_ms(torch, fwd, 2)
+        out["forward_launches_B6"] = alora_qkv.launches / 2
+        if out["forward_launches_B6"] != 3 * La:
+            fail(f"granite forward_full: B6 launched "
+                 f"{out['forward_launches_B6']} times, not {3 * La}")
+        h0, _, _ = M.forward_full(params, cfg, toks[:, :S])
+        out["row0_rel_err"] = rel_err(h[0], h0[0])[1]
+        if out["row0_rel_err"] > TOL["bfloat16"]:
+            fail(f"granite forward_full: row 0 (base weights) differs from "
+                 f"the adapter-free forward by {out['row0_rel_err']}")
+        out["row1_differs"] = rel_err(h[1], h0[1])[1]
+        del h0
+        dc = M.prefill_to_decode_caches(cfg, caches, S, S + nd)
+        del caches, h
+        tok = toks[:, S:S + 1]
+        alora_qkv.launches = 0
+        steps_ms, first = [], None
+        for i in range(nd):
+            t0 = time.perf_counter()
+            lg, dc = M.decode_step(params, cfg, tok, dc, S + i, adapters=st,
+                                   adapter_idx=aidx[:, S + i:S + i + 1])
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = lg[:, 0].float()
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+        out["decode_launches_B6_per_step"] = alora_qkv.launches / nd
+        if alora_qkv.launches != 3 * La * nd:
+            fail(f"granite decode_step: B6 launched {alora_qkv.launches} "
+                 f"times in {nd} steps, not {3 * La * nd}")
+        out["decode_ms"] = statistics.median(steps_ms[1:])
+        hf, _, _ = M.forward_full(params, cfg, toks[:, :S + 1], adapters=st,
+                                  adapter_idx=aidx[:, :S + 1])
+        want = M.logits_for(params, cfg, hf[:, -1]).float()
+        # the bf16 rounding floor of these logits: the same forward on row
+        # 0 alone (other GEMM shapes, the same math)
+        h1, _, _ = M.forward_full(params, cfg, toks[:1, :S + 1],
+                                  adapters=st, adapter_idx=aidx[:1, :S + 1])
+        alone = M.logits_for(params, cfg, h1[:, -1]).float()
+        out["bf16_floor_rel_err"] = rel_err(alone, want[:1])[1]
+        out["decode_logits_rel_err"] = rel_err(first, want)[1]
+        out["decode_logits_tol"] = GRANITE_BF16_DECODE_TOL
+        del hf, h1
+        if out["decode_logits_rel_err"] > GRANITE_BF16_DECODE_TOL:
+            fail(f"granite decode_step: the first step's logits differ from "
+                 f"forward_full's by {out['decode_logits_rel_err']} > "
+                 f"{GRANITE_BF16_DECODE_TOL} (bf16 floor "
+                 f"{out['bf16_floor_rel_err']})")
+    nbytes = param_bytes(torch, params)
+    out["weight_bytes"] = nbytes
+    out["decode_weight_read_bound_ms"] = bound(nbytes, 0, "bfloat16")[0]
+    out["forward_bound_ms"], out["forward_bound_by"] = bound(
+        nbytes, 2 * (nbytes / 2) * B * S, "bfloat16")
+    print(f"  granite-3.2-8b forward_full (B {B}, S {S}, {La} layers, "
+          f"{g['adapters']} rank-{g['rank']} adapters): "
+          f"{out['forward_ms']:.1f} ms (bound {out['forward_bound_ms']:.2f} "
+          f"ms, {out['forward_bound_by']}); B6 {out['forward_launches_B6']:.0f}"
+          f" launches; row 0 vs adapter-free {out['row0_rel_err']:.3e}, row 1"
+          f" {out['row1_differs']:.3e}", flush=True)
+    print(f"  decode_step (B {B}): median {out['decode_ms']:.2f} ms a step "
+          f"(weight-read bound {out['decode_weight_read_bound_ms']:.2f} ms); "
+          f"B6 {out['decode_launches_B6_per_step']:.0f} a step; first step "
+          f"vs forward_full {out['decode_logits_rel_err']:.3e} (tol "
+          f"{GRANITE_BF16_DECODE_TOL}; bf16 floor: "
+          f"row 0 alone vs in the batch {out['bf16_floor_rel_err']:.3e})",
+          flush=True)
+    del params, st, dc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["float32"] = granite_f32_decode(torch)
+    return out
+
+
+def granite_f32_decode(torch, layers: int = 4):
+    """The same prefill -> decode_step against forward_full at granite's
+    full widths in float32 (``layers`` layers, no adapter): within TOL of
+    max |forward_full| (bf16 at 40 layers is held to
+    ``GRANITE_BF16_DECODE_TOL``, above its rounding floor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    B, S = GRANITE_FULL["B"], GRANITE_FULL["S"]
+    cfg = get_config("granite-3.2-8b").replace(num_layers=layers,
+                                               dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(gen, cfg, device="cuda")
+    toks = torch.randint(10, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        _, _, c = M.forward_full(params, cfg, toks[:, :S],
+                                 return_caches=True)
+        dc = M.prefill_to_decode_caches(cfg, c, S, S + 1)
+        lg, _ = M.decode_step(params, cfg, toks[:, S:], dc, S)
+        hf, _, _ = M.forward_full(params, cfg, toks)
+        err = rel_err(lg[:, 0], M.logits_for(params, cfg, hf[:, -1]))[1]
+    if err > TOL["float32"]:
+        fail(f"granite float32 ({layers} layers) decode_step vs "
+             f"forward_full: {err} > {TOL['float32']}")
+    print(f"  granite-3.2-8b widths, float32, {layers} layers: decode_step "
+          f"vs forward_full {err:.3e} (tol {TOL['float32']})", flush=True)
+    del params, c, dc, hf
+    torch.cuda.empty_cache()
+    return {"layers": layers, "decode_logits_rel_err": err}
+
+
+@contextlib.contextmanager
+def plain_ssm_scan(torch):
+    """Every ``ssd_forward`` of the block runs the chunked plain scan."""
+    from repro_torch.models import ssm
+    real = ssm.dense_scan_applies
+    ssm.dense_scan_applies = lambda *a: False
+    try:
+        yield
+    finally:
+        ssm.dense_scan_applies = real
+
+
+@contextlib.contextmanager
+def first_call(module, name):
+    """While the block runs, ``module.<name>`` keeps copies of its first
+    call's arguments (the yielded list) and passes every call on."""
+    real, seen = getattr(module, name), []
+
+    def recorded(*args):
+        if not seen:
+            seen.append(tuple(a.clone() for a in args))
+        return real(*args)
+    setattr(module, name, recorded)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def full_mamba2(torch, timer):
+    """mamba2-2.7b at full width and depth (bf16, random weights): a no-grad
+    ``forward_full`` on B = 2 rows of 2,048 tokens launches B5 once per
+    layer (64) at the kernel bench's shape; layer 0's scan inputs from that
+    run through B5 and through the chunked plain scan within 1e-4 of max
+    |plain|, with both times; the final hidden state against the all-plain
+    forward; B2 on an adapted forward (``mamba2_adapted``); then one
+    ``forward_full`` under grad launches B5 zero times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bench
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    m = MAMBA_FULL
+    cfg = get_config("mamba2-2.7b")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = M.init_params(gen, cfg, device="cuda")
+    B, S = m["B"], m["S"]
+    toks = torch.randint(10, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    out = {"B": B, "S": S, "layers": cfg.num_layers}
+    real = ssd_chunk_scan
+    with torch.no_grad():
+        M.forward_full(params, cfg, toks)          # warm-up
+        ssd_chunk_scan.launches = 0
+        with first_call(ssm, "ssd_chunk_scan") as seen:
+            t0 = time.perf_counter()
+            h, _, _ = M.forward_full(params, cfg, toks)
+            torch.cuda.synchronize()
+            out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        out["forward_launches_B5"] = ssd_chunk_scan.launches
+        if ssd_chunk_scan.launches != cfg.num_layers:
+            fail(f"mamba2 forward_full: B5 launched {ssd_chunk_scan.launches}"
+                 f" times, not {cfg.num_layers}")
+        args = seen[0]
+        out["scan_shape"] = f"{tuple(args[0].shape)} N={args[1].shape[-1]}"
+        if args[0].shape != (B, S, 80, 64) or args[1].shape[-1] != 128:
+            fail(f"mamba2 forward_full: B5 at {out['scan_shape']}, not the "
+                 "bench's (2, 2048, 80, 64) N=128")
+        Q = min(cfg.ssm.chunk_size, S)
+        y, st = real(*args)
+        yp, sp, _ = ssm.chunked_scan(*args, Q)
+        torch.cuda.synchronize()
+        out["layer0_rel_err_y"] = rel_err(y, yp)[1]
+        out["layer0_rel_err_state"] = rel_err(st, sp)[1]
+        if max(out["layer0_rel_err_y"], out["layer0_rel_err_state"]) > \
+                TOL["float32"]:
+            fail(f"mamba2 layer 0: B5 vs the chunked plain scan "
+                 f"{out['layer0_rel_err_y']}, "
+                 f"{out['layer0_rel_err_state']} > {TOL['float32']}")
+        out["layer0_ms"] = timer(lambda: real(*args))
+        out["layer0_plain_ms"] = timer(lambda: ssm.chunked_scan(*args, Q))
+        Bt, _, H, P = args[0].shape
+        N = args[1].shape[-1]
+        nbytes = 4 * (2 * Bt * S * H * P + 2 * Bt * S * H * N
+                      + 2 * Bt * S * H + Bt * H * N * P)
+        out["layer0_bound_ms"], out["layer0_bound_by"] = bound(
+            nbytes, Bt * H * bench.ssd_ops(S, N, P), "float32")
+        with plain_ssm_scan(torch):
+            ssd_chunk_scan.launches = 0
+            hp, _, _ = M.forward_full(params, cfg, toks)
+            if ssd_chunk_scan.launches:
+                fail("mamba2: the all-plain forward launched B5")
+        out["hidden_max_abs_err_vs_plain"], out["hidden_rel_err_vs_plain"], _ \
+            = rel_err(h.float().reshape(B * S, -1),
+                      hp.float().reshape(B * S, -1))
+        del hp, seen, args
+        out["adapted"] = mamba2_adapted(torch, timer, cfg, params, toks, h)
+        del h
+    leaves = [t for lp in params["layers"] for t in lp["ssm"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    ssd_chunk_scan.launches = 0
+    hg, _, _ = M.forward_full(params, cfg, toks[:, :m["grad_S"]])
+    out["grad_forward_launches_B5"] = ssd_chunk_scan.launches
+    if ssd_chunk_scan.launches or not hg.requires_grad:
+        fail(f"mamba2 forward_full under grad: B5 launched "
+             f"{ssd_chunk_scan.launches} times")
+    del hg
+    for t in leaves:
+        t.requires_grad_(False)
+    print(f"  mamba2-2.7b forward_full (B {B}, S {S}, {cfg.num_layers} "
+          f"layers): {out['forward_ms']:.1f} ms; B5 "
+          f"{out['forward_launches_B5']} launches at {out['scan_shape']}; "
+          f"layer 0 B5 vs chunked plain scan y {out['layer0_rel_err_y']:.3e}"
+          f", state {out['layer0_rel_err_state']:.3e} (tol "
+          f"{TOL['float32']}), B5 {out['layer0_ms']:.4f} ms, chunked plain "
+          f"{out['layer0_plain_ms']:.4f} ms, bound "
+          f"{out['layer0_bound_ms']:.4f} ms ({out['layer0_bound_by']}); "
+          f"final hidden vs all-plain forward max |err| "
+          f"{out['hidden_max_abs_err_vs_plain']:.3e} "
+          f"({out['hidden_rel_err_vs_plain']:.3e} of max); under grad (S "
+          f"{m['grad_S']}): B5 {out['grad_forward_launches_B5']} launches",
+          flush=True)
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba2_adapted(torch, timer, cfg, params, toks, h):
+    """B2's one-pair entry on the full-sequence path: a no-grad
+    ``forward_full`` of mamba2-2.7b with one rank-32 adapter, row 0 on the
+    base weights and row 1 on the adapter from the middle of the
+    sequence, launches B2 once per SSM layer (64) at T = B * S rows; layer
+    0's delta inputs from that run through B2 and through
+    ``ragged_grouped_lora_ref`` within bf16 tolerance, timed; row 0 of the
+    hidden state against the adapter-free forward's ``h``."""
+    from repro_torch.core.alora import init_adapter_weights, stack_adapters
+    from repro_torch.kernels.ragged_lora import ragged_grouped_lora
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    B, S = toks.shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    st = stack_adapters(cfg, [init_adapter_weights(gen, cfg, 32,
+                                                   device="cuda")], 32)
+    aidx = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+    aidx[1, S // 2:] = 1
+    real = ragged_grouped_lora
+
+    def fwd():
+        return M.forward_full(params, cfg, toks, adapters=st,
+                              adapter_idx=aidx)[0]
+    fwd()                                          # warm-up
+    ragged_grouped_lora.launches = 0
+    with first_call(L, "ragged_grouped_lora") as seen:
+        t0 = time.perf_counter()
+        ha = fwd()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    out = {"forward_ms": ms, "launches_B2": ragged_grouped_lora.launches}
+    if ragged_grouped_lora.launches != cfg.num_layers:
+        fail(f"mamba2 adapted forward_full: B2 launched "
+             f"{ragged_grouped_lora.launches} times, not {cfg.num_layers}")
+    x, a, b, idx, act = seen[0]
+    out["shape"] = (f"T={x.shape[0]} d={x.shape[1]} out={b.shape[-1]} "
+                    f"n={a.shape[0]} r={a.shape[-1]}")
+    if x.shape[0] != B * S:
+        fail(f"mamba2 adapted forward_full: B2 at {out['shape']}, not "
+             f"T = {B * S}")
+    got, want = (real(x, a, b, idx, act),), lora_plain(x, [(a, b)], idx, act)
+    torch.cuda.synchronize()
+    out["max_abs_err"], out["rel_err"], out["row_rel_err"] = lora_errors(
+        got, want)
+    out["tol"] = TOL["bfloat16"]
+    if out["rel_err"] > TOL["bfloat16"]:
+        fail(f"mamba2 layer 0: B2 vs ragged_grouped_lora_ref "
+             f"{out['rel_err']} > {TOL['bfloat16']}")
+    if bool(got[0][idx == 0].float().abs().max() != 0):
+        fail("mamba2 layer 0: B2 gave slot 0's rows a delta")
+    t = time_lora(timer, x, [(a, b)], idx, act, "bfloat16")
+    out.update({k: v for k, v in t.items() if k not in ("bytes", "ops")})
+    out["row0_rel_err"] = rel_err(ha[0], h[0])[1]
+    out["row1_differs"] = rel_err(ha[1], h[1])[1]
+    if out["row0_rel_err"] > TOL["bfloat16"]:
+        fail(f"mamba2 adapted forward_full: row 0 (base weights) differs "
+             f"from the adapter-free forward by {out['row0_rel_err']}")
+    print(f"  mamba2-2.7b adapted forward_full (row 1 on a rank-32 adapter "
+          f"from token {S // 2}): {ms:.1f} ms; B2 {out['launches_B2']} "
+          f"launches at {out['shape']}; layer 0 B2 vs plain "
+          f"{out['rel_err']:.3e} of max|plain| (tol {TOL['bfloat16']}), "
+          f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.5f} ms ({out['bound_by']}); row 0 vs "
+          f"adapter-free {out['row0_rel_err']:.3e}, row 1 "
+          f"{out['row1_differs']:.3e}", flush=True)
+    del st, ha, seen, got, want
+    return out
+
+
+def full_training(torch):
+    """Training at granite-3.2-8b's widths and 16 of its 40 layers (bf16
+    params and grads, float32 moments): B = 4 rows of 1,024 tokens, remat
+    and flash_remat on, ten AdamW steps on the reference's
+    ``SyntheticDataset`` repeating one batch: every loss finite and the
+    mean of the last three below the first three's; ms a step, tokens/s
+    and peak memory.  Then at 2 layers one step each with flash_remat off
+    and on (remat off), peak memory beside each."""
+    from repro_torch.common import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      SyntheticDataset, init_train_state,
+                                      make_train_step)
+    t = TRAIN_FULL
+    out = {"layers": t["layers"], "B": t["B"], "S": t["S"],
+           "steps": t["steps"]}
+    # the reference launcher's schedule (lr 3e-4, 20 warm-up steps); two
+    # warm-up steps overshoot at these widths (PERF.md, section 6)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=t["steps"])
+
+    def model(layers):
+        cfg = get_config("granite-3.2-8b").replace(num_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        return cfg, M.init_params(gen, cfg, device="cuda")
+    cfg, params = model(t["layers"])
+    out["params"] = sum(x.numel() for x in tree_leaves(params))
+    batch = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=t["S"],
+                                        global_batch=t["B"])).batch(0)
+    step = make_train_step(cfg, ocfg, M.Runtime(remat=True,
+                                                flash_remat=True))
+    state = init_train_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(t["steps"]):
+        t0 = time.perf_counter()
+        state, stats = step(state, batch)
+        losses.append(float(stats["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["losses"] = losses
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["step_ms"] = statistics.median(ms[1:])
+    out["tokens_per_s"] = t["B"] * t["S"] / (out["step_ms"] / 1e3)
+    if not all(np.isfinite(losses)):
+        fail(f"training: non-finite loss {losses}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not last < first:
+        fail(f"training: the loss did not fall on a repeated batch: "
+             f"{losses}")
+    print(f"  training granite-3.2-8b widths, {t['layers']} layers "
+          f"({out['params'] / 1e9:.3f} B params), B {t['B']}, S {t['S']}, "
+          f"remat + flash_remat: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; median {out['step_ms']:.1f} ms a step, "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    del state, params, step, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash_remat_peak_bytes"] = {}
+    for flash in (False, True):
+        cfg, params = model(t["mem_layers"])
+        step = make_train_step(cfg, ocfg, M.Runtime(flash_remat=flash))
+        state = init_train_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, stats = step(state, batch)
+        if not np.isfinite(float(stats["loss"])):
+            fail("training at 2 layers: non-finite loss")
+        out["flash_remat_peak_bytes"][str(flash).lower()] = \
+            torch.cuda.max_memory_allocated()
+        del state, params, step, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+    pk = out["flash_remat_peak_bytes"]
+    print(f"  {t['mem_layers']} layers, one step, peak memory: flash_remat "
+          f"off {pk['false'] / 2**30:.2f} GiB, on {pk['true'] / 2**30:.2f} "
+          "GiB", flush=True)
+    return out
+
+
+def reduced_full_parity(torch, arch):
+    """The reduced float32 ``arch`` on the card and on the CPU with the
+    same weights and inputs (half of each row on an adapter): forward_full
+    hidden within 1e-5 of max |CPU|, 16 greedy decode_step tokens
+    identical (with the logits' smallest top-1/top-2 margin), and one
+    train step's loss, ce, aux, grad norm and params within 1e-5
+    relative.  starcoder2 runs 150 tokens past its 128-token window."""
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.alora import init_adapter_weights, stack_adapters
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+    cfg = get_reduced(arch)
+    gen = torch.Generator().manual_seed(5)
+    params = M.init_params(gen, cfg, device="cpu")
+    st = stack_adapters(cfg, [init_adapter_weights(gen, cfg, 8,
+                                                   device="cpu")], 8)
+    B, S = 2, 150 if arch == "starcoder2-3b" else 40
+    rng = np.random.RandomState(6)
+    toks = torch.from_numpy(rng.randint(10, cfg.vocab_size, (B, S)))
+    aidx = torch.zeros((B, S), dtype=torch.int32)
+    aidx[1, S // 2:] = 1
+    n = {"audio": cfg.encoder_seq_len, "vision": cfg.num_patches}.get(
+        cfg.frontend)
+    extra = None if n is None else torch.from_numpy(
+        (rng.randn(B, n, cfg.d_model) * 0.05).astype(np.float32))
+    npre = S + (cfg.num_patches if cfg.frontend == "vision" else 0)
+    batch = {"tokens": toks.numpy(), "labels": np.roll(toks.numpy(), -1, 1),
+             "mask": np.ones((B, S), np.float32)}
+    if extra is not None:
+        batch["extra_embeds"] = extra.numpy()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+        p = tree_map(lambda t: t.to(dev), params)
+        a = tree_map(lambda t: t.to(dev), st)
+        with torch.no_grad():
+            h, aux, caches = M.forward_full(
+                p, cfg, on(toks), extra_embeds=on(extra), adapters=a,
+                adapter_idx=on(aidx), return_caches=True)
+            dc = M.prefill_to_decode_caches(cfg, caches, npre, npre + 16)
+            tok = M.logits_for(p, cfg, h[:, -1:]).argmax(-1)
+            out_toks, margin = [], float("inf")
+            for i in range(16):
+                lg, dc = M.decode_step(p, cfg, tok, dc, npre + i,
+                                       adapters=a,
+                                       adapter_idx=on(aidx[:, -1:]))
+                margin = min(margin, top2_margin(torch, lg[:, 0]))
+                tok = lg[:, 0].argmax(-1, keepdim=True)
+                out_toks.append(tok[:, 0].tolist())
+        ts, stats = make_train_step(cfg, AdamWConfig(total_steps=10),
+                                    M.Runtime(), loss_chunk=16)(
+            init_train_state(tree_map(lambda t: t.clone(), p)), batch)
+        runs[dev] = dict(h=h.cpu(), aux=float(aux), tokens=out_toks,
+                         margin=margin,
+                         stats={k: float(v) for k, v in stats.items()},
+                         params=[t.cpu() for t in tree_leaves(ts.params)])
+    c, r = runs["cuda"], runs["cpu"]
+    res = {"hidden_rel_err": rel_err(c["h"].reshape(-1, cfg.d_model),
+                                     r["h"].reshape(-1, cfg.d_model))[1],
+           "min_top2_logit_margin": {"cuda": c["margin"],
+                                     "cpu": r["margin"]},
+           "tokens_equal": c["tokens"] == r["tokens"]}
+    if res["hidden_rel_err"] > 1e-5:
+        fail(f"{arch} forward_full: card vs CPU {res['hidden_rel_err']}")
+    if not res["tokens_equal"]:
+        fail(f"{arch} decode_step: card tokens {c['tokens']} vs CPU "
+             f"{r['tokens']}")
+    res["train_rel_err"] = {
+        k: abs(c["stats"][k] - r["stats"][k]) / max(abs(r["stats"][k]), 1e-6)
+        for k in ("loss", "ce", "aux", "grad_norm", "lr")}
+    scale = max(float(t.abs().max()) for t in r["params"])
+    res["train_params_err"] = max(float((a - b).abs().max())
+                                  for a, b in zip(c["params"],
+                                                  r["params"])) / scale
+    worst = max(max(res["train_rel_err"].values()), res["train_params_err"])
+    if worst > 1e-5:
+        fail(f"{arch} train step: card vs CPU {res['train_rel_err']}, "
+             f"params {res['train_params_err']}")
+    print(f"  {cfg.name}: forward_full card vs CPU "
+          f"{res['hidden_rel_err']:.3e}; 16 decode tokens equal (smallest "
+          f"top-1/top-2 margin card {c['margin']:.3e}, CPU "
+          f"{r['margin']:.3e}); train step worst {worst:.3e}", flush=True)
+    return res
+
+
+def reduced_quant_and_engine(torch):
+    """The reduced float32 granite: the prompt then 16 greedy
+    ``decode_step`` tokens with int8 caches (``kv_cache_quant``, from
+    ``init_decode_caches``) identical on the card and on the CPU; then the card's engine emits the port's own forward_full ->
+    decode_step greedy tokens (the reference's
+    ``test_engine_matches_dense_reference``)."""
+    from repro_torch.common import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.alora import AdapterSpec, init_adapter_weights
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine
+    cfg = get_reduced("granite-3.2-8b")
+    gen = torch.Generator().manual_seed(7)
+    params = M.init_params(gen, cfg, device="cpu")
+    prompt = list(np.random.RandomState(0).randint(10, 500, 50))
+    rt = M.Runtime(kv_cache_quant=True)
+    toks, margins = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        with torch.no_grad():
+            dc = M.init_decode_caches(cfg, 1, 80, rt, device=dev)
+            for i, t in enumerate(prompt):
+                lg, dc = M.decode_step(
+                    p, cfg, torch.tensor([[t]], device=dev), dc, i, rt)
+            out, margin = [], float("inf")
+            for i in range(16):
+                margin = min(margin, top2_margin(torch, lg[:, 0]))
+                tok = lg[:, 0].argmax(-1, keepdim=True)
+                out.append(int(tok))
+                lg, dc = M.decode_step(p, cfg, tok, dc, len(prompt) + i, rt)
+        toks[dev], margins[dev] = out, margin
+    if toks["cuda"] != toks["cpu"]:
+        fail(f"granite kv_cache_quant decode: card {toks['cuda']} vs CPU "
+             f"{toks['cpu']}")
+    p = tree_map(lambda t: t.to("cuda"), params)
+    with torch.no_grad():
+        h, _, pc = M.forward_full(p, cfg, torch.tensor([prompt],
+                                                       device="cuda"),
+                                  return_caches=True)
+        ref = [int(M.logits_for(p, cfg, h[0, -1]).argmax())]
+        dc = M.prefill_to_decode_caches(cfg, pc, len(prompt), 256)
+        for i in range(7):
+            lg, dc = M.decode_step(p, cfg, torch.tensor([[ref[-1]]],
+                                                        device="cuda"),
+                                   dc, len(prompt) + i)
+            ref.append(int(lg[0, 0].argmax()))
+    w = init_adapter_weights(gen, cfg, 8, device="cpu")
+    eng = Engine(cfg, params, device="cuda", adapters=[(AdapterSpec(
+        "uq", rank=8, invocation_tokens=INV), w)])
+    rid = eng.submit(prompt, 8)
+    eng.run_until_idle()
+    got = eng.request(rid).output_tokens
+    if got != ref:
+        fail(f"granite engine on the card {got} vs forward_full -> "
+             f"decode_step {ref}")
+    print(f"  granite-3.2-8b-reduced: kv_cache_quant 16 decode tokens card "
+          f"== CPU (smallest top-1/top-2 margin card {margins['cuda']:.3e}, "
+          f"CPU {margins['cpu']:.3e}); the card's engine emits forward_full "
+          f"-> decode_step's 8 greedy tokens", flush=True)
+    return {"quant_tokens_equal": True, "quant_min_top2_margin": margins,
+            "engine_tokens_equal": True}
+
+
+def full_model_path(torch):
+    """Phase 8.  Every kernel count is set to 0 just before each main-path
+    run and read just after (in the functions above)."""
+    from repro_torch.kernels.bench import Timer
+    timer = Timer("cuda")
+    out = {}
+    t0 = time.perf_counter()
+    out["b6"] = check_full_b6(torch, timer)
+    out["granite"] = full_granite(torch)
+    out["mamba2"] = full_mamba2(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    out["training"] = full_training(torch)
+    t1 = time.perf_counter()
+    out["parity"] = {arch: reduced_full_parity(torch, arch)
+                     for arch in PARITY_FULL}
+    out["parity"]["granite-3.2-8b/quant_engine"] = \
+        reduced_quant_and_engine(torch)
+    out["seconds"] = {"full_width": t1 - t0,
+                      "parity": time.perf_counter() - t1}
+    print(f"  phase 8: full width {out['seconds']['full_width']:.1f} s, "
+          f"parity {out['seconds']['parity']:.1f} s", flush=True)
     return out
 
 
@@ -3022,6 +3716,17 @@ def main() -> None:
     from repro_torch.kernels.bench import Timer
 
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(name: str) -> None:
+        """Close the running phase's timer and print the next one's title
+        with the seconds since the start."""
+        now = time.perf_counter() - t_start
+        if phase_s:
+            last = next(reversed(phase_s))
+            phase_s[last] = now - phase_s[last]
+        phase_s[name] = now
+        print(f"{name} ({now:.1f} s)", flush=True)
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
@@ -3033,7 +3738,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("[1] build", flush=True)
+    phase("[1] build")
     t0 = time.perf_counter()
     _, log = build.build()
     build.load()
@@ -3043,7 +3748,7 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
-    print("[2] kernels vs plain", flush=True)
+    phase("[2] kernels vs plain")
     cfgs = {"granite": get_config("granite-3.2-8b"),
             "mamba2": get_config("mamba2-2.7b"),
             "zamba2": get_config("zamba2-2.7b"),
@@ -3066,7 +3771,7 @@ def main() -> None:
     del timer
     torch.cuda.empty_cache()
 
-    print("[3] main path, full width", flush=True)
+    phase("[3] main path, full width")
     mp = {}
     for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
                  *DENSE_ARCHS):
@@ -3081,7 +3786,7 @@ def main() -> None:
             PHIMOE_LAYERS if arch == "phi3.5-moe-42b-a6.6b" else 0),
             sequential=arch in SEQ_ARCHS)
 
-    print("[4] parity, reduced fp32, card vs CPU", flush=True)
+    phase("[4] parity, reduced fp32, card vs CPU")
     par = {arch: parity(torch, arch)
            for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
                         *DENSE_ARCHS[:3], *MOE_VLM_ARCHS, ENCDEC_ARCH)}
@@ -3105,11 +3810,10 @@ def main() -> None:
     for r in par.values():
         r.pop("card_run", None)
 
-    print("[5] kernel bench entry point, full width", flush=True)
+    phase("[5] kernel bench entry point, full width")
     bres, blaunch, bsec = bench_path(torch)
 
-    print("[6] serving launcher and 2-replica fleet, full width",
-          flush=True)
+    phase("[6] serving launcher and 2-replica fleet, full width")
     tier = serving_tier(torch)
     tier_launches = {
         name: {**{f"launcher_p{p}": r["launches"][name]
@@ -3118,7 +3822,7 @@ def main() -> None:
                   for k in ("affinity", "round_robin", "drain")}}
         for name in ("ragged_paged_attention", "ragged_grouped_lora_qkv")}
 
-    print("[7] paper benches and examples", flush=True)
+    phase("[7] paper benches and examples")
     reset_counts()
     benches = paper_benches(torch)
     bench_launches = {name: fn.launches for name, fn in counted().items()}
@@ -3127,6 +3831,9 @@ def main() -> None:
     for name in SERVING + ("paged_attention", "alora_qkv"):
         if bench_launches[name] == 0:
             fail(f"phase 7 never launched {name}")
+
+    phase("[8] full-sequence model and training, full width")
+    full = full_model_path(torch)
 
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
@@ -3287,7 +3994,8 @@ def main() -> None:
                         others=("granite_f32_window24",))),
         bench_entry("ssd_chunk_scan", "src/repro_torch/csrc/ssd_chunk_dense.cu",
                     "src/repro/kernels/ssd_chunk.py:73", blaunch, bres, edges,
-                    "mamba2_N128", others=("zamba2_N64",)),
+                    "mamba2_N128",
+                    others=("zamba2_N64", "reduced_ssm_N16")),
         sequential_entry(
             "alora_qkv", "src/repro_torch/csrc/alora_qkv.cu",
             "src/repro/kernels/alora_qkv.py:45", mp, seq_kernels,
@@ -3303,11 +4011,47 @@ def main() -> None:
     ]
     for entry in kernels:
         entry["launches_paper_benches"] = bench_launches[entry["name"]]
+        if entry["name"] == "ssd_chunk_scan":
+            # a main path since phase 8: mamba2-2.7b's no-grad forward_full
+            mf = full["mamba2"]
+            entry.update(
+                launches=mf["forward_launches_B5"], launches_bench=blaunch[
+                    "ssd_chunk_scan"],
+                launches_per_step=mf["forward_launches_B5"],
+                per="mamba2-2.7b forward_full",
+                path="mamba2-2.7b forward_full (no grad), one per layer",
+                launches_forward_full_under_grad=mf[
+                    "grad_forward_launches_B5"],
+                forward_full={k: mf[k] for k in (
+                    "scan_shape", "layer0_rel_err_y", "layer0_rel_err_state",
+                    "layer0_ms", "layer0_plain_ms", "layer0_bound_ms",
+                    "layer0_bound_by", "forward_ms")})
+        if entry["name"] == "ragged_grouped_lora":
+            # phase 8: mamba2-2.7b's adapted no-grad forward_full
+            ad = full["mamba2"]["adapted"]
+            entry.update(
+                launches_forward_full=ad["launches_B2"],
+                forward_full={k: v for k, v in ad.items()
+                              if k != "launches_B2"})
+        if entry["name"] == "alora_qkv":
+            gf = full["granite"]
+            entry.update(
+                launches_forward_full=gf["forward_launches_B6"],
+                launches_decode_step_per_step=gf[
+                    "decode_launches_B6_per_step"],
+                full_model={k.split("/", 1)[1]: {
+                    f: v for f, v in r.items() if f != "finite"}
+                    for k, r in full["b6"].items()})
+    phase("end")
+    phase_s.pop("end")
+    print("  seconds per phase: " + ", ".join(
+        f"{k.split(' ')[0]} {v:.1f}" for k, v in phase_s.items()), flush=True)
     print(json.dumps({"main_path": mp, "parity": par, "moe_layer": moe_layer,
                       "sequential_kernels": seq_kernels,
                       "bench": bres, "serving_tier": tier,
-                      "paper_benches": benches,
+                      "paper_benches": benches, "full_model": full,
                       "bench_seconds": bsec, "card": card,
+                      "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

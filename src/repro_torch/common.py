@@ -34,6 +34,25 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_paths(tree: Any, prefix: tuple = ()) -> list:
+    """(path, leaf) pairs of nested dicts/lists in order; a path holds
+    the keys and list indices down to its leaf."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in tree_paths(v, prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def tree_at(tree: Any, path) -> Any:
+    """The leaf of ``tree`` at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]

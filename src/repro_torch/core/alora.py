@@ -26,7 +26,8 @@ import torch.nn.functional as F
 from repro_torch.common import resolve_device, tree_leaves, tree_map
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.model import check_supported, period_segments
+from repro_torch.models.model import (check_supported,  # noqa: F401
+                                      per_layer_adapters, period_segments)
 from repro_torch.models.ssm import in_proj_dim
 
 Params = Dict[str, Any]
@@ -142,16 +143,3 @@ def stack_adapters(cfg: ModelConfig, adapters: List[Params], rank: int, *,
     all_ads = [zero_adapter_weights(cfg, rank, device=device)] + \
         [pad_adapter_rank(w, rank) for w in adapters]
     return tree_map(lambda *xs: torch.stack(xs, dim=2), *all_ads)
-
-
-def per_layer_adapters(cfg: ModelConfig, stacked: Params) -> List[Params]:
-    """Slice a segment-stacked adapter tree into one dict per model layer
-    (network order); leaves keep any slot axis."""
-    out: List[Params] = []
-    repeats, segs = period_segments(cfg)
-    for r in range(repeats):
-        for si, (_, count) in enumerate(segs):
-            seg = stacked[f"seg{si}"]
-            for c in range(count):
-                out.append({k: v[r, c] for k, v in seg.items()})
-    return out

@@ -386,6 +386,8 @@ extern "C" int ssd_chunk_scan(const void* x, const void* B, const void* C,
   auto* sf = static_cast<float*>(state);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
+    case 16: return launch<16>(xf, bf, cf, af, tf, yf, sf, Bt, S, H, P, ps,
+                               slices, stages, s);
     case 32: return launch<32>(xf, bf, cf, af, tf, yf, sf, Bt, S, H, P, ps,
                                slices, stages, s);
     case 64: return launch<64>(xf, bf, cf, af, tf, yf, sf, Bt, S, H, P, ps,

@@ -211,6 +211,7 @@ def alora_qkv(x: torch.Tensor, w: torch.Tensor, a_stack: torch.Tensor,
         return alora_qkv_ref(x, w, a_stack, b_stack, adapter_idx)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.no_backward("alora_qkv", x, w, a_stack, b_stack)
     _check(x, w, a_stack, b_stack, adapter_idx)
     T, d = x.shape
     out_dim = w.shape[1]

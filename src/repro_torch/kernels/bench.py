@@ -230,8 +230,9 @@ def cases(device: str = "cuda", reduced: bool = False) -> Iterator[Case]:
     from a seeded generator on ``device``.
     Full: granite-3.2-8b's decode attention (bf16, and float32 with a
     24-token window) and fused Q/K/V projection (bf16 at T = 128 and 512,
-    float32 at 128); the scan at mamba2-2.7b's N = 128 and zamba2-2.7b's
-    N = 64.  Reduced: one small case per kernel."""
+    float32 at 128); the scan at mamba2-2.7b's N = 128, zamba2-2.7b's
+    N = 64 and the reduced SSM models' N = 16, each at mamba2's H and P.
+    Reduced: one small case per kernel."""
     gen = torch.Generator(device=device).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     if reduced:
@@ -256,6 +257,7 @@ def cases(device: str = "cuda", reduced: bool = False) -> Iterator[Case]:
                          name=f"granite_{_short(dtype)}_T{T}", **qkv)
     yield ssd_case(gen, device, N=128, name="mamba2_N128", **ssd)
     yield ssd_case(gen, device, N=64, name="zamba2_N64", **ssd)
+    yield ssd_case(gen, device, N=16, name="reduced_ssm_N16", **ssd)
 
 
 def _short(dtype: torch.dtype) -> str:

@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -132,6 +134,18 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def no_backward(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a gradient through kernel ``name``:
+    the hand-written kernels have no backward (nor have the reference's
+    Pallas kernels), and an output with no ``grad_fn`` would silently
+    give its inputs a zero gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            "requires grad; run it under torch.no_grad() (the training "
+            "step passes no adapters)")
 
 
 def check(err: int, name: str) -> None:

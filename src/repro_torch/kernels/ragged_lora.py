@@ -208,6 +208,7 @@ def ragged_grouped_lora(x: torch.Tensor, a_stack: torch.Tensor,
                                        active_slots)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.no_backward("ragged_grouped_lora", x, a_stack, b_stack)
     (out,) = _launch(x, ((a_stack, b_stack),), adapter_idx, active_slots)
     if x.shape[0]:
         ragged_grouped_lora.launches += 1
@@ -234,6 +235,8 @@ def ragged_grouped_lora_qkv(x: torch.Tensor, q: Pair, k: Pair, v: Pair,
                                              active_slots) for a, b in pairs)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.no_backward("ragged_grouped_lora_qkv", x,
+                      *(t for pair in pairs for t in pair))
     outs = _launch(x, pairs, adapter_idx, active_slots)
     if x.shape[0]:
         ragged_grouped_lora_qkv.launches += 1

@@ -48,7 +48,7 @@ SCAN_STATE_DIMS = (16, 32, 64, 128)   # N: a sixteenth of it per lane
 SCAN_P_STEP = 8           # P a multiple of this
 # the dense scan's launch plan: the CUDA source's kWarpCols and
 # kMaxWarps, the state sizes and the chunk length it is built for
-DENSE_N = (32, 64, 96, 128)       # N: the state's columns in registers
+DENSE_N = (16, 32, 64, 96, 128)   # N: the state's columns in registers
 DENSE_CHUNK = 32                  # Q, tokens per chunk
 DENSE_TILES = 6                   # C . B^T's lower-triangle 16 x 8 tiles
 DENSE_WARP_COLS = 16              # columns of P per warp
@@ -293,6 +293,7 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         return ssd_chunk_ref(x, B, C, dA, dt)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    build.no_backward("ssd_chunk_scan", x, B, C, dA, dt)
     y, state = _launch_dense(x, B, C, dA, dt)
     if y.numel():
         ssd_chunk_scan.launches += 1

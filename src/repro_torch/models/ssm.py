@@ -15,10 +15,16 @@ is index gathers and a float32 einsum, as in the reference (no
 ``ssd_forward`` (the chunked SSD over whole sequences: quadratic within
 a chunk, a recurrence on the (nh, N, P) state across chunks, the state
 at every chunk boundary on request) and ``ssd_decode_step`` (one token
-of the recurrence) serve the sequential execution mode.  Their adapter
-delta over every resident slot is the grouped delta with all of them
-active, which is the reference's dense delta: on a card it is the
-hand-written kernel's one-pair entry.
+of the recurrence) serve the sequential execution mode and the
+full-sequence model (``models.model.forward_full`` / ``decode_step``).
+From a zero state, with no boundary states asked for and no gradient
+needed, ``ssd_forward``'s scan is the dense SSD kernel
+(``kernels.ssd_chunk.ssd_chunk_scan``: on a card the hand-written one);
+the sequential mode's prefill chunk (from the live state, keeping every
+boundary state) and a pass under autograd run the chunked scan here.
+Their adapter delta over every resident slot is the grouped delta with
+all of them active, which is the reference's dense delta: on a card it
+is the hand-written kernel's one-pair entry.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_chunk import ragged_ssd_chunk_scan
+from repro_torch.kernels.ssd_chunk import (ragged_ssd_chunk_scan,
+                                           ssd_chunk_scan)
 from repro_torch.models.layers import dtype_of, lora_delta_dispatch
 
 Params = Dict[str, Any]
@@ -129,6 +136,52 @@ def _causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor,
     return out, full[:, -(W - 1):]
 
 
+def chunked_scan(xs: torch.Tensor, Bh: torch.Tensor, Ch: torch.Tensor,
+                 dA: torch.Tensor, dt: torch.Tensor, Q: int,
+                 ssm_state: Optional[torch.Tensor] = None):
+    """The chunked SSD scan in plain torch (the reference's jnp
+    ``chunk_step``): quadratic within chunks of ``Q`` tokens, whose
+    products run as one batch, and a recurrence on the state across
+    them.  xs (B, S, nh, P), Bh/Ch (B, S, nh, N), dA/dt (B, S, nh), all
+    float32; ``ssm_state`` (B, nh, N, P) the entry state (None: zeros).
+    Returns (y (B, S, nh, P) without the D skip, the final state, the
+    state after each chunk (nc, B, nh, N, P))."""
+    B, S, nh, P = xs.shape
+    N = Bh.shape[-1]
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+
+    def chunked(t):
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((B, nc, Q) + t.shape[2:])
+
+    xc, Bc, Cc, dAc, dtc = map(chunked, (xs, Bh, Ch, dA, dt))
+    csum = torch.cumsum(dAc, dim=2)                        # (B, nc, Q, nh)
+    total = csum[:, :, -1]                                 # (B, nc, nh)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
+    diff = csum[:, :, :, None, :] - csum[:, :, None, :, :]
+    Lm = torch.where(tri[:, :, None], torch.exp(diff),
+                     torch.zeros_like(diff))               # (B, nc, Q, Q, nh)
+    CB = torch.einsum("bcqhn,bckhn->bcqkh", Cc, Bc)
+    Wm = CB * Lm * dtc[:, :, None, :, :]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", Wm, xc)
+    decay_to_end = torch.exp(total[:, :, None, :] - csum)
+    chunk_state = torch.einsum("bckhn,bckhp->bchnp",
+                               Bc * (dtc * decay_to_end)[..., None], xc)
+    state = ssm_state if ssm_state is not None else torch.zeros(
+        (B, nh, N, P), dtype=torch.float32, device=xs.device)
+    entry, after = [], []
+    for c in range(nc):
+        entry.append(state)
+        state = torch.exp(total[:, c])[..., None, None] * state \
+            + chunk_state[:, c]
+        after.append(state)
+    # the incoming state's contribution to every chunk
+    y = y + torch.einsum("bcqhn,bchnp->bcqhp", Cc * torch.exp(csum)[..., None],
+                         torch.stack(entry, dim=1))
+    return y.reshape(B, nc * Q, nh, P)[:, :S], state, torch.stack(after)
+
+
 def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 ssm_state: Optional[torch.Tensor] = None,
                 conv_state: Optional[torch.Tensor] = None,
@@ -145,8 +198,14 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``valid_len``).  ``return_boundary_states``: also return the state
     and the raw conv window at every chunk boundary, ((nc, B, nh, N, P),
     (nc, B, W-1, ch)) — what the engine snapshots when the chunk size is
-    its block size.  The within-chunk products of every chunk run as one
-    batch; only the state's recurrence across chunks is a loop."""
+    its block size.
+
+    The scan's route is decided by the arguments alone: from a zero
+    state (``ssm_state is None``), with no boundary states and no
+    gradient needed (:func:`dense_scan_applies`), it is the dense SSD
+    scan ``ssd_chunk_scan`` (the kernel on a CUDA tensor, its plain
+    version on the CPU); otherwise :func:`chunked_scan`, which autograd
+    differentiates."""
     s = cfg.ssm
     B, S, _ = x.shape
     d_inner, nh, conv_ch = ssm_dims(cfg)
@@ -187,49 +246,37 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
         dt = dt * seq_valid[None, :, None]
     dA = dt * (-torch.exp(p["A_log"]))                     # (B, S, nh)
 
-    # ---- chunks: (B, nc, Q, ...) --------------------------------------
-    pad = (-S) % Q
-    nc = (S + pad) // Q
-
-    def chunked(t):
-        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-        return t.reshape((B, nc, Q) + t.shape[2:])
-
-    xc, Bc, Cc, dAc, dtc = map(chunked, (xs, Bh, Ch, dA, dt))
-    csum = torch.cumsum(dAc, dim=2)                        # (B, nc, Q, nh)
-    total = csum[:, :, -1]                                 # (B, nc, nh)
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    diff = csum[:, :, :, None, :] - csum[:, :, None, :, :]
-    Lm = torch.where(tri[:, :, None], torch.exp(diff),
-                     torch.zeros_like(diff))               # (B, nc, Q, Q, nh)
-    CB = torch.einsum("bcqhn,bckhn->bcqkh", Cc, Bc)
-    Wm = CB * Lm * dtc[:, :, None, :, :]
-    y = torch.einsum("bcqkh,bckhp->bcqhp", Wm, xc)
-    decay_to_end = torch.exp(total[:, :, None, :] - csum)
-    chunk_state = torch.einsum("bckhn,bckhp->bchnp",
-                               Bc * (dtc * decay_to_end)[..., None], xc)
-    state = ssm_state if ssm_state is not None else torch.zeros(
-        (B, nh, N, P), dtype=torch.float32, device=x.device)
-    entry, after = [], []
-    for c in range(nc):
-        entry.append(state)
-        state = torch.exp(total[:, c])[..., None, None] * state \
-            + chunk_state[:, c]
-        after.append(state)
-    # the incoming state's contribution to every chunk
-    y = y + torch.einsum("bcqhn,bchnp->bcqhp", Cc * torch.exp(csum)[..., None],
-                         torch.stack(entry, dim=1))
-    y = y.reshape(B, nc * Q, nh, P)[:, :S] + p["D"][:, None] * xs
+    if dense_scan_applies(p, x, ssm_state, return_boundary_states):
+        y, state = ssd_chunk_scan(xs.contiguous(), Bh.contiguous(),
+                                  Ch.contiguous(), dA.contiguous(),
+                                  dt.contiguous())
+    else:
+        y, state, after = chunked_scan(xs, Bh, Ch, dA, dt, Q, ssm_state)
+    y = y + p["D"][:, None] * xs
     y = _rmsnorm_gated(y.reshape(B, S, d_inner), z, p["norm_w"],
                        cfg.norm_eps)
     out = (y @ p["out_proj"].float()).to(x.dtype)
     if not return_boundary_states:
         return out, state, new_conv_state
     # the raw conv window ending at each chunk boundary (clamped to S)
+    nc = after.shape[0]
     ends = ((torch.arange(nc, device=x.device) + 1) * Q).clamp(max=S)
     idx = ends[:, None] + torch.arange(W - 1, device=x.device)[None, :]
     boundary_conv = full_raw[:, idx].transpose(0, 1)       # (nc, B, W-1, ch)
-    return out, state, new_conv_state, (torch.stack(after), boundary_conv)
+    return out, state, new_conv_state, (after, boundary_conv)
+
+
+def dense_scan_applies(p: Params, x: torch.Tensor,
+                       ssm_state: Optional[torch.Tensor],
+                       return_boundary_states: bool) -> bool:
+    """Whether :func:`ssd_forward`'s scan is the dense SSD scan: from a
+    zero state, no boundary states, and no gradient to carry (the dense
+    kernel has no backward; training differentiates the chunked scan, as
+    the reference's training differentiates its jnp scan)."""
+    if ssm_state is not None or return_boundary_states:
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.values())))
 
 
 def ssd_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,

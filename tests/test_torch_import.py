@@ -48,7 +48,13 @@ NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.benchmarks.run", "repro_torch.examples",
                "repro_torch.examples.quickstart",
                "repro_torch.examples.serve_multiturn",
-               "repro_torch.examples.async_poisson")
+               "repro_torch.examples.async_poisson",
+               "repro_torch.training", "repro_torch.training.data",
+               "repro_torch.training.optimizer",
+               "repro_torch.training.train_loop",
+               "repro_torch.training.checkpoint",
+               "repro_torch.launch.train",
+               "repro_torch.examples.train_small")
 
 
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
@@ -94,6 +100,22 @@ def test_source_imports_no_jax_or_repro(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     assert not [n for n in names if _forbidden(n)]
+
+
+MODEL_FILES = sorted((ROOT / "src" / "repro_torch" / "models").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", MODEL_FILES,
+                         ids=[p.name for p in MODEL_FILES])
+def test_model_layer_imports_nothing_of_training(path):
+    """The model layer sits below training: ``repro_torch.models`` never
+    imports ``repro_torch.training``."""
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [n for n in names if n.startswith("repro_torch.training")]
 
 
 def _no_cuda(monkeypatch):
@@ -228,3 +250,21 @@ def test_ssm_entry_points_default_to_cuda_and_raise_without_it(
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(torch.Generator().manual_seed(0), cfg)
+
+
+@pytest.mark.parametrize("entry", ["launch_train", "train_small",
+                                   "init_decode_caches"])
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        small, monkeypatch, entry):
+    from repro_torch.examples import train_small
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_decode_caches
+    cfg, _ = small
+    _no_cuda(monkeypatch)
+    calls = {
+        "launch_train": lambda: train.main(["--steps", "1"]),
+        "train_small": lambda: train_small.main(),
+        "init_decode_caches": lambda: init_decode_caches(cfg, 1, 8),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()

@@ -292,11 +292,12 @@ def test_scan_unsupported_shapes_raise(T, H, N, P, M):
 # ---------------------------------------------------------------------------
 # dense SSD scan (the kernel bench's)
 # ---------------------------------------------------------------------------
-# the bench's shapes (mamba2-2.7b, zamba2-2.7b) and chip_smoke.py's
-# phase-5 edges: S off the chunks, P off the warp slices, Bt * H below
-# and above the 132 SMs
-DENSE_SHAPES = [(2, 2048, 80, 128, 64), (2, 2048, 80, 64, 64)] + [
-    (2, S, H, N, 40) for N in (32, 64, 128) for S in (70, 130)
+# the bench's shapes (mamba2-2.7b, zamba2-2.7b, the reduced SSM models'
+# N = 16) and chip_smoke.py's phase-5 edges: S off the chunks, P off the
+# warp slices, Bt * H below and above the 132 SMs
+DENSE_SHAPES = [(2, 2048, 80, 128, 64), (2, 2048, 80, 64, 64),
+                (2, 64, 8, 16, 32)] + [
+    (2, S, H, N, 40) for N in (16, 32, 64, 128) for S in (70, 130)
     for H in (3, 70)]
 
 
@@ -347,7 +348,7 @@ def test_dense_plan_constants_match_the_cuda_source():
 
 
 @pytest.mark.parametrize("Bt,S,H,N,P", [
-    (2, 64, 3, 16, 64),       # N not a built size
+    (2, 64, 3, 24, 64),       # N not a built size
     (2, 64, 3, 256, 64),      # N above 128
     (2, 64, 3, 48, 64),
     (2, 64, 3, 64, 60),       # P not a multiple of 8
