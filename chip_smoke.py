@@ -9,7 +9,8 @@ Phases, each of which exits non-zero on failure:
    versions, TF32 off, the build of the CUDA kernels from
    ``src/repro_torch/csrc`` (timed), and the port's static analyzer
    (``python -m repro_torch.analysis``: the hot-path lint and the
-   resource-lifecycle check over ``repro_torch/{serving,kernels,obs}``;
+   resource-lifecycle check over ``repro_torch/{serving,kernels,obs}``
+   and the sharded step's ``distributed/parallel.py``;
    any violation fails);
 2. every kernel against its plain PyTorch version on the same card
    tensors, at the main paths' shapes, with times (CUDA events, L2
@@ -181,7 +182,26 @@ Phases, each of which exits non-zero on failure:
    adapted one, each held against its plain version on that run's
    inputs); ten AdamW steps at granite's widths x 16 layers; and the
    reduced float32 models card == CPU (forward, greedy decode, a train
-   step, int8 caches, the engine against ``decode_step``).
+   step, int8 caches, the engine against ``decode_step``);
+9. the sharded mixed step (``EngineConfig.mesh``, ``repro_torch.
+   distributed``) on ranks that share the card (``distributed.spawn``,
+   gloo; any rank's failure fails the phase): (a) the reduced float32
+   granite, mamba2 and whisper at (data=1, model=2) and (2, 2), granite
+   at (1, 4) (its two K/V heads replicated), a preemption case at (2,
+   2) and granite's full widths × ``TP_WIDE_LAYERS`` layers in float32
+   at (1, 2), each equal to the unsharded card engine on the reference
+   test's workload (tokens, reused tokens, evictions, preemptions,
+   steps) with per-layer launches on every rank; (b) granite-3.2-8b at full width
+   and depth in bf16 at model=2 through phase 3's pipeline, the weights
+   drawn as phase 3 draws them and cut to each rank's slice layer by
+   layer: 40 B1 and 40 fused B2 a mixed step on each rank, the evals'
+   reuse equal to phase 3's, the GB of weights a rank, the wall ms a
+   mixed step, the token agreement with phase 3 (printed), the wall ms
+   of a collective, and rank 0's device busy ms a decode step with its
+   copies' share (``torch.profiler``); (c) mamba2-2.7b at full width,
+   ``MAMBA_TP_LAYERS`` of its 64 layers, model=2: B3 and B2's one-pair
+   entry once per SSM layer of each rank's mixed step, every eval
+   restoring a state snapshot.
 
 ``PERF.md`` gives its run time on one H100, the kernels' build included.
 
@@ -1647,6 +1667,9 @@ def main_path(torch, arch: str, profile: bool, long: bool = False,
                   f"{cfg.num_layers * m.num_experts} layer-experts touched, "
                   f"{dp['routed_expert_gb_per_step']:.2f} GB)", flush=True)
     outputs = summary.pop("outputs")
+    if arch in TP_ARCHS[:2]:
+        # phase 9 holds its sharded runs to these
+        summary["tp_outputs"] = outputs
     # the timed step wrapper refers back to the engine: collect the cycle
     # so the next model finds the card empty
     del eng
@@ -3632,6 +3655,412 @@ def full_model_path(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded mixed step (EngineConfig.mesh) on ranks sharing the
+# card (repro_torch.distributed.spawn: gloo, one process per rank)
+# ---------------------------------------------------------------------------
+TP_ARCHS = ("granite-3.2-8b", "mamba2-2.7b", ENCDEC_ARCH)
+# 9(c)'s depth cut of mamba2-2.7b (64 layers), for the phase's time budget
+MAMBA_TP_LAYERS = 16
+TP_PREEMPT = dict(num_blocks=8, max_running=2)
+# 9(a)'s float32 check at granite's full widths, cut to this many layers
+TP_WIDE_LAYERS = 2
+# the reduced float32 cases: (name, arch, workload, engine keywords)
+TP_CASES_2 = [(f"{a}@1x2", a, "workload", {}) for a in TP_ARCHS]
+TP_CASES_4 = ([(f"{a}@2x2", a, "workload", {}) for a in TP_ARCHS]
+              + [("granite-3.2-8b@1x4", "granite-3.2-8b", "workload",
+                  dict(mesh=(1, 4))),
+                 ("preemption@2x2", "granite-3.2-8b", "preemption",
+                  TP_PREEMPT)])
+
+
+def tp_zoo(torch):
+    """The reduced float32 models of 9(a) on the CPU: weights from a seed
+    and three rank-8 adapters (B amplified 30×, the reference test's), the
+    odd ones aLoRA."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.alora import AdapterSpec, init_adapter_weights
+    from repro_torch.models.model import init_params
+    zoo = {}
+    for arch in TP_ARCHS:
+        cfg = get_reduced(arch)
+        params = init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+        ads = []
+        for i in range(3):
+            w = init_adapter_weights(torch.Generator().manual_seed(100 + i),
+                                     cfg, 8, device="cpu")
+            ads.append((AdapterSpec(f"ad{i}", 8, INV if i % 2 else None),
+                        {seg: {k: v * 30.0 if k.startswith("b") else v
+                               for k, v in leaves.items()}
+                         for seg, leaves in w.items()}))
+        zoo[arch] = (cfg, params, ads)
+    return zoo
+
+
+def tp_unsharded(torch, zoo):
+    """9(a)'s oracle: every reduced case on one unsharded card engine."""
+    from repro_torch.benchmarks import sharded_step as S
+    from repro_torch.serving import Engine, EngineConfig
+    out = {}
+    for name, arch, workload, kw in TP_CASES_2 + TP_CASES_4:
+        kw = {k: v for k, v in kw.items() if k != "mesh"}
+        cfg, params, ads = zoo[arch]
+        eng = Engine(cfg, params, adapters=ads, device="cuda",
+                     engine_cfg=EngineConfig(**{**S.ENGINE, **kw}))
+        run = S.run_preemption if workload == "preemption" \
+            else S.run_workload
+        out[name] = run(eng)
+    return out
+
+
+def tp_profile(torch, eng, cfg, profiled: bool, n_steps: int = 8):
+    """A decode window on a sharded engine (4 requests, 256-token
+    contexts): every rank steps alike, ``profiled`` (rank 0) under
+    torch.profiler.  Returns its wall ms a step and its device busy ms a
+    step, split into kernels and each way of copy (gloo stages every
+    collective's payload through host memory: a DtoH and an HtoD copy
+    each; the runner's own uploads are ~17 small HtoD a step)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(1)
+    for _ in range(4):
+        eng.submit(list(rng.randint(10, cfg.vocab_size, 256)),
+                   2 * n_steps + 8)
+    for _ in range(64):
+        eng.step()
+        if eng.running and not eng.waiting and not eng.last_step_tokens[1]:
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    out = {"step_ms": step_ms}
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+    else:
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run_until_idle()
+    if not profiled:
+        return out
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0) or 0
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    per = lambda es: sum(dev_us(e) for e in es) / 1e3 / n_steps  # noqa: E731
+    n = lambda es: sum(e.count for e in es) / n_steps  # noqa: E731
+    dtoh = [e for e in ev if "DtoH" in e.key]
+    htod = [e for e in ev if "HtoD" in e.key]
+    out.update(device_busy_ms=per(ev), dtoh_ms=per(dtoh), dtoh_per_step=n(dtoh),
+               htod_ms=per(htod), htod_per_step=n(htod),
+               kernel_ms=per([e for e in ev if "Memcpy" not in e.key
+                              and "Memset" not in e.key]))
+    busy = out["device_busy_ms"] or float("nan")
+    out["copy_share_of_busy"] = (out["dtoh_ms"] + out["htod_ms"]) / busy
+    return out
+
+
+def tp_slicer(cfg, rank):
+    """``init_params``'s ``shard``: each layer cut to the rank's slice as
+    it is drawn (None without a rank: the whole model)."""
+    if rank is None:
+        return None
+    from repro_torch.distributed.sharding import (axis_sizes, rank_layout,
+                                                  shard_tree)
+    lay = rank_layout(cfg, axis_sizes(rank.mesh)["model"],
+                      rank.coords["model"])
+    return lambda path, tree: shard_tree(tree, lay)
+
+
+def tp_wide_f32(torch, rank=None):
+    """granite-3.2-8b's full widths (49,664-row padded vocab, 32/8 heads
+    of 128, d_ff 12,800) at ``TP_WIDE_LAYERS`` layers in float32, three
+    amplified rank-8 adapters drawn on the card from a seed, through the
+    reference test's workload on an engine over ``mesh`` (None: one
+    unsharded engine).  Float32, so the sharded tokens must equal the
+    unsharded ones exactly at the production layout."""
+    device = "cuda" if rank is None else rank.device
+    from repro_torch.benchmarks import sharded_step as S
+    from repro_torch.configs import get_config
+    from repro_torch.core.alora import AdapterSpec, init_adapter_weights
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.models.model import init_params
+    cfg = get_config("granite-3.2-8b").replace(num_layers=TP_WIDE_LAYERS,
+                                               dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = init_params(gen, cfg, device=device, shard=tp_slicer(cfg, rank))
+    ads = [(AdapterSpec(f"ad{i}", 8, INV if i % 2 else None),
+            {seg: {k: v * 30.0 if k.startswith("b") else v
+                   for k, v in leaves.items()}
+             for seg, leaves in init_adapter_weights(
+                 gen, cfg, 8, device=device).items()})
+           for i in range(3)]
+    eng = Engine(cfg, params, adapters=ads, device=device,
+                 engine_cfg=EngineConfig(**S.ENGINE, mesh=rank and rank.mesh))
+    del params, ads
+    out = S.run_workload(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_full(torch, rank, arch, num_layers=0, profile=False):
+    """Serve ``arch`` at full width (``num_layers`` of its layers where
+    given) on this rank of the mesh: weights drawn as phase 3 draws them
+    (same seed and order), each layer cut to the rank's slice as it is
+    drawn, one rank-32 aLoRA adapter, phase 3's ``PIPE``, the serving
+    kernels' counts set to 0 just before and read just after."""
+    from repro_torch.configs import SSM, get_config
+    from repro_torch.core.alora import AdapterSpec, init_adapter_weights
+    from repro_torch.distributed.sharding import tree_bytes
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = get_config(arch)
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(gen, cfg, device="cuda", shard=tp_slicer(cfg, rank))
+    adapter = init_adapter_weights(gen, cfg, 32, device="cuda")
+    eng = Engine(cfg, params, device="cuda",
+                 adapters=[(AdapterSpec("eval", 32, INV), adapter)],
+                 engine_cfg=EngineConfig(mesh=rank.mesh))
+    del params, adapter
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_gb = tree_bytes(eng.runner.params) / 1e9
+    reset_counts()
+    res, step_ms = run_pipeline(torch, eng, **PIPE)
+    counts = dict(zip(SERVING, read_counts()))
+    steps = eng.runner.call_counts["mixed_step"]
+    Ls = cfg.pattern().count(SSM)
+    La = cfg.num_layers - Ls
+    want = dict(zip(SERVING, (La * steps, Ls * steps, La * steps,
+                              Ls * steps)))
+    if counts != want:
+        fail(f"rank {rank.rank} {arch}: launches {counts} != {want} over "
+             f"{steps} mixed steps")
+    ids = res.base_ids + res.eval_ids
+    out = {"arch": arch, "num_layers": cfg.num_layers, "steps": steps,
+           "launches": counts, "weights_gb": weights_gb, "setup_s": setup_s,
+           "step_ms_mean": statistics.mean(step_ms),
+           "step_ms_median": statistics.median(step_ms),
+           "outputs": [list(map(int, eng.request(i).output_tokens))
+                       for i in ids],
+           "eval_cache_hits": [eng.request(i).n_cache_hit_tokens
+                               for i in res.eval_ids],
+           "eval_state_reused": [eng.request(i).state_reused
+                                 for i in res.eval_ids],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    from repro_torch.benchmarks.sharded_step import leaks
+    if leaks(eng):
+        fail(f"rank {rank.rank} {arch}: {leaks(eng)} leaked after the drain")
+    if profile:
+        out["decode"] = tp_profile(torch, eng, cfg, rank.rank == 0)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_collectives(torch, rank, n: int = 20):
+    """Wall ms of one collective of the sharded step on this rank's model
+    group (gloo, the card's tensors staged through host memory): the
+    row-parallel all_reduce of a decode step's (4, 4096) and a prefill
+    chunk's (128, 4096) bf16 rows, and the logits' all_gather of (4,
+    24832) bf16 (granite's padded vocab over two ranks)."""
+    import torch.distributed as dist
+    group = rank.mesh.get_group("model")
+    out = {}
+    for name, shape in (("all_reduce_4x4096", (4, 4096)),
+                        ("all_reduce_128x4096", (128, 4096)),
+                        ("all_gather_4x24832", (4, 24832))):
+        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+
+        def once():
+            if name.startswith("all_reduce"):
+                dist.all_reduce(x, group=group)
+            else:
+                dist.all_gather(parts, x, group=group)
+        for _ in range(3):
+            once()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            once()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / n
+    return out
+
+
+def tp_rank(rank, zoo, cases, full):
+    """One rank of phase 9: the reduced cases, then (``full``) 9(b) and
+    9(c) at full width."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.benchmarks import sharded_step as S
+    out = {"reduced": S.serve_cases(rank, zoo, cases)}
+    if full:
+        out["collective_ms"] = tp_collectives(torch, rank)
+        out["wide_f32"] = tp_wide_f32(torch, rank)
+        out["granite"] = tp_full(torch, rank, "granite-3.2-8b", profile=True)
+        out["mamba2"] = tp_full(torch, rank, "mamba2-2.7b",
+                                num_layers=MAMBA_TP_LAYERS)
+    return out
+
+
+def agreement_of(a, b) -> str:
+    same = sum(x == y for p, q in zip(a, b) for x, y in zip(p, q))
+    return f"{same}/{sum(len(p) for p in a)}"
+
+
+def sharded_step(torch, phase3):
+    """Phase 9.  (a) The reduced float32 granite, mamba2 and whisper at
+    (data=1, model=2) and (2, 2), granite at (1, 4) (its two K/V heads
+    replicated), a preemption case at (2, 2) and granite's full widths ×
+    ``TP_WIDE_LAYERS`` layers in float32 at (1, 2), each equal to the
+    unsharded card engine (tokens, reused tokens, evictions,
+    preemptions, steps) with one mixed step per work step and per-layer
+    launches on every rank.  (b) granite-3.2-8b at full width and depth in
+    bf16 at model=2, phase 3's pipeline: 40 B1 and 40 fused B2 a mixed
+    step on each rank, the evals' reuse equal to phase 3's, weights per
+    rank, wall ms a mixed step, token agreement with phase 3 (printed),
+    rank 0's device busy ms a decode step and its copies' share.  (c)
+    mamba2-2.7b at full width, ``MAMBA_TP_LAYERS`` layers, model=2: B3
+    and B2's one-pair entry once per SSM layer of each rank's mixed step,
+    every eval restoring a state snapshot."""
+    import threading
+
+    from repro_torch.distributed.spawn import launch
+    zoo = tp_zoo(torch)
+    four = {}
+
+    def run_four():
+        try:
+            four["res"] = launch(tp_rank, zoo, TP_CASES_4, False, data=2,
+                                 model=2, device="cuda", timeout=400)
+        except Exception as e:      # re-raised below
+            four["res"] = e
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run_four)
+    th.start()
+    want = tp_unsharded(torch, zoo)
+    th.join()
+    if isinstance(four["res"], Exception):
+        raise four["res"]
+    t4 = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide = tp_wide_f32(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = launch(tp_rank, zoo, TP_CASES_2, True, data=1, model=2,
+                 device="cuda", timeout=600)
+    t2 = time.perf_counter() - t0
+    for i, r in enumerate(two):
+        if r["wide_f32"] != wide:
+            fail(f"9(a) granite widths x {TP_WIDE_LAYERS} layers, float32, "
+                 f"model=2, rank {i}: {r['wide_f32']} != the unsharded "
+                 f"card's {wide}")
+    print(f"  9(a) granite-3.2-8b widths x {TP_WIDE_LAYERS} layers, float32, "
+          f"model=2: tokens, hits {wide[1]['hits']}, steps "
+          f"{wide[1]['steps']}, evictions {wide[1]['evictions']} equal the "
+          "unsharded card's on both ranks", flush=True)
+    print(f"  world of 4 ranks {t4:.1f} s (with the unsharded runs), world "
+          f"of 2 ranks {t2:.1f} s", flush=True)
+    summary = {"world4_s": t4, "world2_s": t2, "reduced": {},
+               "wide_f32": wide[1]}
+    for world, cases in ((four["res"], TP_CASES_4), (two, TP_CASES_2)):
+        for name, arch, workload, _ in cases:
+            res = [r["reduced"][name] for r in world]
+            toks, st = want[name]
+            for i, r in enumerate(res):
+                if r["tokens"] != toks or any(r["stats"][k] != st[k]
+                                              for k in st):
+                    fail(f"9(a) {name} rank {i}: {r['tokens']} {r['stats']} "
+                         f"!= the unsharded card's {toks} {st}")
+                if r["leaks"]:
+                    fail(f"9(a) {name} rank {i} leaked {r['leaks']}")
+                if workload == "workload" and \
+                        r["stats"]["mixed_calls"] != r["stats"]["steps"]:
+                    fail(f"9(a) {name}: {r['stats']}")
+                cfg = zoo[arch][0]
+                calls = r["call_counts"]["mixed_step"]
+                Ls = cfg.pattern().count("ssm")
+                La = cfg.num_layers - Ls
+                if r["launches"] != dict(zip(SERVING, (
+                        La * calls, Ls * calls, La * calls, Ls * calls))):
+                    fail(f"9(a) {name} rank {i}: launches {r['launches']} "
+                         f"over {calls} mixed steps")
+            summary["reduced"][name] = {
+                "steps": st.get("steps"), "hits": st["hits"],
+                "preemptions": st["preemptions"],
+                "k_pool_per_rank": res[0]["k_pool"],
+                "live_ssm_per_rank": res[0]["live_ssm"],
+                "launches_rank0": res[0]["launches"]}
+            print(f"  9(a) {name}: tokens, hits {st['hits']}, steps "
+                  f"{st.get('steps')}, preemptions {st['preemptions']} equal "
+                  f"the unsharded card's on every rank; launches rank 0 "
+                  f"{res[0]['launches']}", flush=True)
+    for key, p3 in (("granite", phase3["granite-3.2-8b"]),
+                    ("mamba2", phase3["mamba2-2.7b"])):
+        ranks = [r[key] for r in two]
+        for r in ranks[1:]:
+            if r["outputs"] != ranks[0]["outputs"]:
+                fail(f"9 {key}: the ranks sampled different tokens")
+        r0 = ranks[0]
+        if r0["eval_cache_hits"] != p3["eval_cache_hits"]:
+            fail(f"9 {key}: eval reuse {r0['eval_cache_hits']} != phase 3's "
+                 f"{p3['eval_cache_hits']}")
+        if key == "mamba2" and not all(r0["eval_state_reused"]):
+            fail(f"9 mamba2: an eval restored no state snapshot: "
+                 f"{r0['eval_state_reused']}")
+        agree = agreement_of(r0["outputs"], p3["outputs"]) \
+            if r0["num_layers"] == p3["num_layers"] else None
+        entry = {k: r0[k] for k in r0 if k != "outputs"}
+        entry.update(agreement_with_phase3=agree,
+                     weights_gb_per_rank=[r["weights_gb"] for r in ranks],
+                     launches_per_rank=[r["launches"] for r in ranks],
+                     unsharded_weights_gb=p3["weights_gb"],
+                     unsharded_step_ms_mean=p3["step_ms_mean"])
+        summary[key] = entry
+        print(f"  9 {key} ({r0['num_layers']} layers, model=2): weights "
+              f"{entry['weights_gb_per_rank']} GB a rank (unsharded "
+              f"{p3['weights_gb']:.2f}), {r0['steps']} mixed steps, "
+              f"{r0['step_ms_mean']:.2f} ms mean / {r0['step_ms_median']:.2f} "
+              f"median a step (unsharded {p3['step_ms_mean']:.2f}), launches "
+              f"{r0['launches']} on each rank, eval reuse "
+              f"{r0['eval_cache_hits']}, state_reused "
+              f"{r0['eval_state_reused']}, tokens agreeing with phase 3 "
+              f"{agree}, set-up {r0['setup_s']:.1f} s, peak "
+              f"{r0['peak_memory_gb']:.2f} GB", flush=True)
+    summary["collective_ms"] = two[0]["collective_ms"]
+    print("  collectives on rank 0, wall ms each: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in summary["collective_ms"].items()),
+        flush=True)
+    dec = summary["granite"].get("decode", {})
+    print(f"  9 granite decode window, rank 0: {dec.get('step_ms', 0):.2f} ms "
+          f"a step; device busy {dec.get('device_busy_ms')} ms (kernels "
+          f"{dec.get('kernel_ms')}, DtoH {dec.get('dtoh_ms')} ms in "
+          f"{dec.get('dtoh_per_step')}, HtoD {dec.get('htod_ms')} ms in "
+          f"{dec.get('htod_per_step')} a step; copies "
+          f"{dec.get('copy_share_of_busy')} of busy)", flush=True)
+    return summary
+
+
 def kernel_entry(name, source, replaces, launches, steps, check, **extra):
     """One entry of the ``kernels`` line: the fields every kernel has,
     then what is particular to it."""
@@ -3835,6 +4264,13 @@ def main() -> None:
     phase("[8] full-sequence model and training, full width")
     full = full_model_path(torch)
 
+    phase("[9] the sharded mixed step, ranks sharing the card")
+    p3 = {a: {"outputs": mp[a].pop("tp_outputs"), "num_layers":
+              mp[a]["num_layers"], **{k: mp[a][k] for k in (
+                  "eval_cache_hits", "weights_gb", "step_ms_mean")}}
+          for a in TP_ARCHS[:2]}
+    tp = sharded_step(torch, p3)
+
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
     a16 = attn["bfloat16"]
@@ -4011,6 +4447,11 @@ def main() -> None:
     ]
     for entry in kernels:
         entry["launches_paper_benches"] = bench_launches[entry["name"]]
+        if entry["name"] in SERVING:
+            # phase 9: each rank's launches, full width at model=2
+            entry["launches_sharded_per_rank"] = {
+                key: tp[key]["launches_per_rank"][0][entry["name"]]
+                for key in ("granite", "mamba2")}
         if entry["name"] == "ssd_chunk_scan":
             # a main path since phase 8: mamba2-2.7b's no-grad forward_full
             mf = full["mamba2"]
@@ -4050,6 +4491,7 @@ def main() -> None:
                       "sequential_kernels": seq_kernels,
                       "bench": bres, "serving_tier": tier,
                       "paper_benches": benches, "full_model": full,
+                      "sharded_step": tp,
                       "bench_seconds": bsec, "card": card,
                       "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}), flush=True)

@@ -111,6 +111,7 @@ ATTR_CLASSES: Dict[str, str] = {
     "host_bufs": "HostBufferPool",
     "cache": "PrefixCache",
     "tracer": "Tracer",
+    "tp": "TensorParallel",
 }
 # obs files exempt from the wholesale B4 recording rule: exporters run
 # strictly off the step path (after a run / from a CLI), so they may do
@@ -493,12 +494,14 @@ def _py_files(d: str, exclude=frozenset()) -> List[str]:
 
 
 def lint_tree(src_root: str) -> List[Violation]:
-    """Lint the port's serving + kernels + obs trees with the default
+    """Lint the port's serving + kernels + obs trees (and the sharded
+    step's collectives, ``distributed/parallel.py``) with the default
     tables.  ``src_root`` is the directory containing the
     ``repro_torch`` package."""
     pkg = os.path.join(src_root, "repro_torch")
     return lint_files(
-        _py_files(os.path.join(pkg, "serving")),
+        _py_files(os.path.join(pkg, "serving"))
+        + [os.path.join(pkg, "distributed", "parallel.py")],
         kernel_paths=tuple(_py_files(os.path.join(pkg, "kernels"),
                                      KERNEL_EXEMPT_FILES)),
         obs_paths=tuple(_py_files(os.path.join(pkg, "obs"),

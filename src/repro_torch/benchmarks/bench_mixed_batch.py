@@ -13,7 +13,20 @@ every family, whisper's encoder calls aside) and, on the card, the
 serving kernels' launches per step (B1 and B2's fused entry once per
 attention layer, B2's one-pair entry and B3 once per SSM layer;
 asserted).  The reference's zero-recompile asserts wait for the captured
-step (ROADMAP A8); its ``--mesh`` / ``--data-shard`` legs wait for A14.
+step (ROADMAP A8).
+
+``--mesh data=D,model=N`` adds a tensor-parallel leg: the same mixed
+workload on D × N ranks (``EngineConfig.mesh``), asserting token
+identity with the single-device mixed run (float32; printed as an
+agreement count in bf16), one mixed step per work step and, on the
+card, each rank's serving-kernel launches per step; it appends one
+record to ``results/torch/sharded_step.jsonl``.  ``--data-shard`` (with
+D > 1) splits the packed token axis over the data ranks
+(``data_shard_tokens``); without it the leg pins it off, as the
+reference's does.  Run as a module, the leg starts its ranks itself
+(``distributed.spawn``; on one card they share it over gloo); under
+``torchrun --nproc-per-node D*N`` every rank runs the bench and joins
+torchrun's process group instead, and rank 0 reports.
 
 Host-side batch assembly goes through the runner's persistent,
 capacity-doubling, pinned staging buffers (``HostBufferPool``); the
@@ -47,14 +60,16 @@ CI runs ``--arch mamba2-2.7b --smoke``, ``--smoke --async`` and
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
 
-from repro_torch.benchmarks.common import (ARCH, Rows, agreement,
-                                           bench_args, exact, fmt_launches,
-                                           launch_counts, make_engine,
-                                           results_path, step_launches)
-from repro_torch.common import resolve_device
+from repro_torch.benchmarks.common import (ARCH, INV, Rows, adapter_weights,
+                                           agreement, bench_args, exact,
+                                           fmt_launches, launch_counts,
+                                           make_engine, model, results_path,
+                                           step_launches)
+from repro_torch.common import resolve_device, tree_map
 from repro_torch.obs import d2h_summary, reuse_by_adapter, write_perfetto
 from repro_torch.serving import EngineConfig
 
@@ -91,6 +106,62 @@ def _workload(eng, seed: int, concurrency: int, prompt_len: int,
             if n_d and n_p:
                 mixed_steps += 1
     return rids, steps, mixed_steps, step_times
+
+
+def parse_mesh(s: str) -> dict:
+    """'model=4' | 'data=2,model=4' -> ``{"data": D, "model": N}``."""
+    kw = {"data": 1, "model": 1}
+    for part in s.split(","):
+        k, v = part.split("=")
+        if k.strip() not in kw:
+            raise ValueError(f"unknown mesh axis {k!r} (data/model)")
+        kw[k.strip()] = int(v)
+    return kw
+
+
+def sharded_leg(rank, cfg, params, adapter_weights, data_shard: bool,
+                concurrency: int, prompt_len: int, gen_len: int):
+    """One rank of the ``--mesh`` leg: the mixed workload (warm-up, then
+    measured) on an engine over ``rank.mesh``, from ``params`` and the
+    rank-32 aLoRA ``adapter_weights``.  Returns the measured run's
+    tokens, work steps, mixed-step calls, step times, assembly time and
+    serving-kernel launches per step."""
+    from repro_torch.core.alora import PAPER_ALORA_RANK, AdapterSpec
+    from repro_torch.serving import Engine
+    spec = AdapterSpec("ad0", rank=PAPER_ALORA_RANK, invocation_tokens=INV)
+    for seed in (999, 7):                           # warmup + measured
+        eng = Engine(cfg, params, adapters=[(spec, adapter_weights)],
+                     device=rank.device, engine_cfg=EngineConfig(
+                         max_running=8, max_batched_tokens=128,
+                         mesh=rank.mesh, data_shard_tokens=data_shard))
+        before = launch_counts()
+        rids, steps, _, times = _workload(eng, seed, concurrency,
+                                          prompt_len, gen_len)
+    return dict(tokens=[list(map(int, eng.request(r).output_tokens))
+                        for r in rids],
+                steps=steps, calls=eng.runner.call_counts["mixed_step"],
+                times=times, t_asm=eng.t_assembly + eng.runner.t_assembly,
+                launches=step_launches(eng, steps, before),
+                exact=exact(eng))
+
+
+def run_sharded_leg(arch: str, mesh: dict, data_shard: bool, device,
+                    concurrency: int, prompt_len: int, gen_len: int):
+    """Every rank's :func:`sharded_leg` result: this process's rank alone
+    under torchrun, else the ranks :func:`distributed.spawn.launch`
+    starts (the model's weights and adapter handed over on the CPU)."""
+    from repro_torch.core.alora import PAPER_ALORA_RANK
+    from repro_torch.distributed import spawn
+    cfg, params = model(arch, device)
+    ad = adapter_weights(arch, PAPER_ALORA_RANK, 0, device)
+    args = (data_shard, concurrency, prompt_len, gen_len)
+    if "WORLD_SIZE" in os.environ:
+        rank = spawn.from_env(mesh["data"], mesh["model"], device)
+        return [sharded_leg(rank, cfg, params, ad, *args)]
+    cpu = lambda t: t.cpu()  # noqa: E731
+    return spawn.launch(sharded_leg, cfg, tree_map(cpu, params),
+                        tree_map(cpu, ad), *args, data=mesh["data"],
+                        model=mesh["model"], device=device.type)
 
 
 TRACE_OVERHEAD_BUDGET = 0.02      # the tracer's promised overhead
@@ -144,8 +215,11 @@ def trace_overhead_check(arch: str, smoke: bool, concurrency: int,
 
 
 def run(arch: str = ARCH, smoke: bool = False, async_leg: bool = False,
-        trace_check: bool = False, device="cuda") -> Rows:
+        trace_check: bool = False, device="cuda", mesh: dict = None,
+        data_shard: bool = False) -> Rows:
     device = resolve_device(device)
+    if data_shard and (mesh is None or mesh.get("data", 1) < 2):
+        raise SystemExit("--data-shard needs --mesh data=D,... with D>1")
     concurrency = 3 if smoke else CONCURRENCY
     prompt_len = 24 if smoke else PROMPT_LEN
     gen_len = 8 if smoke else GEN_LEN
@@ -231,10 +305,52 @@ def run(arch: str = ARCH, smoke: bool = False, async_leg: bool = False,
                      f"d2h_max={max_elems} int32 elems/step (ids, not "
                      f"logits); vs sync: {agreement(out, mixed_tokens)}",
                      overlap=overlap, d2h_max=max_elems)
+    if mesh is not None:
+        sharded_check(arch, smoke, mesh, data_shard, device, concurrency,
+                      prompt_len, gen_len, mixed_tokens, baseline_us, rows)
     if trace_check:
         trace_overhead_check(arch, smoke, concurrency, prompt_len, gen_len,
                              device, rows)
     return rows
+
+
+def sharded_check(arch, smoke, mesh, data_shard, device, concurrency,
+                  prompt_len, gen_len, mixed_tokens, baseline_us,
+                  rows: Rows) -> None:
+    """The ``--mesh`` leg against the single-device mixed run: every rank
+    holds the same tokens, equal to the mixed run's (float32), and makes
+    one mixed-step call per work step."""
+    res = run_sharded_leg(arch, mesh, data_shard, device, concurrency,
+                          prompt_len, gen_len)
+    r0 = res[0]
+    for r in res[1:]:
+        assert r["tokens"] == r0["tokens"], "ranks disagree on the tokens"
+    out, steps, times = r0["tokens"], r0["steps"], r0["times"]
+    assert r0["calls"] == steps, (r0["calls"], steps)
+    if r0["exact"]:
+        assert out == mixed_tokens, \
+            "sharded mixed step diverged from single-device tokens"
+    tag = f"mixed@{mesh['data']}x{mesh['model']}" \
+        + ("+ds" if data_shard else "")
+    us = float(np.mean(times)) * 1e6
+    rows.add(f"mixed_batch/{arch}/{tag}/step_latency", us,
+             f"p50={np.median(times)*1e6:.0f}us "
+             f"p99={np.percentile(times, 99)*1e6:.0f}us",
+             tokens=out, steps=steps, calls=r0["calls"],
+             launches=r0["launches"])
+    rows.add(f"mixed_batch/{arch}/{tag}/vs_single_device", us / baseline_us,
+             f"sharded={us:.0f}us single={baseline_us:.0f}us "
+             f"launches/step per rank: {fmt_launches(r0['launches'])}; vs "
+             f"single: {agreement(out, mixed_tokens)}")
+    with open(results_path("sharded_step.jsonl"), "a") as f:
+        f.write(json.dumps(dict(
+            arch=arch, smoke=smoke, device=device.type,
+            mesh=f"{mesh['data']}x{mesh['model']}", data_shard=data_shard,
+            step_latency_us=us, baseline_us=baseline_us,
+            assembly_us_per_step=r0["t_asm"] / max(steps, 1) * 1e6,
+            device_calls_per_step=r0["calls"] / max(steps, 1),
+            launches_per_step=r0["launches"], steps=steps,
+            token_agreement=agreement(out, mixed_tokens))) + "\n")
 
 
 if __name__ == "__main__":
@@ -246,6 +362,21 @@ if __name__ == "__main__":
                              "D2H payload"),
         "--trace-check": dict(dest="trace_check", action="store_true",
                               help="add a tracing-overhead leg: tracer on "
-                                   "vs off on the same mixed workload")})
+                                   "vs off on the same mixed workload"),
+        "--mesh": dict(default=None,
+                       help="add a tensor-parallel leg over D x N ranks: "
+                            "'model=N' or 'data=D,model=N'"),
+        "--data-shard": dict(dest="data_shard", action="store_true",
+                             help="split the packed token axis over the "
+                                  "data ranks in the --mesh leg")})
+    if int(os.environ.get("RANK", "0")):
+        # under torchrun rank 0 reports; the others keep their rows and
+        # records to themselves
+        import sys
+        import tempfile
+        from repro_torch.benchmarks import common
+        sys.stdout = open(os.devnull, "w")
+        common.RESULTS = tempfile.mkdtemp(prefix="repro_torch_rank_")
     run(a.arch, a.smoke, async_leg=a.async_leg, trace_check=a.trace_check,
-        device=a.device)
+        device=a.device, mesh=parse_mesh(a.mesh) if a.mesh else None,
+        data_shard=a.data_shard)

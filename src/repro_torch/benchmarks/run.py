@@ -1,6 +1,7 @@
 """Benchmark harness of the port — one section per paper table/figure,
 the reference's ``benchmarks/run.py`` without ``fig6`` (the prompt-length
-sweep: ROADMAP A16a) and ``roofline`` (ROADMAP A14).
+sweep: ROADMAP A16a) and ``roofline`` (ROADMAP A14b); ``mixed_batch_tp``
+is ``bench_mixed_batch --mesh model=2``.
 
 Prints ``name,us_per_call,derived`` CSV rows, then each section's wall
 time.
@@ -28,6 +29,9 @@ def sections() -> Dict[str, Callable]:
     from repro_torch.kernels import bench as bench_kernels
     return {
         "mixed_batch": bench_mixed_batch.run,  # unified step vs sequential
+        # the same, plus the tensor-parallel leg on 2 ranks (model=2)
+        "mixed_batch_tp": lambda device: bench_mixed_batch.run(
+            device=device, mesh={"data": 1, "model": 2}),
         "fig11": bench_adapter_base.run,       # adapter->base
         "fig10": bench_generation_length.run,  # generation-length sweep
         "fig8": bench_async.run,               # async Poisson (+fig9)

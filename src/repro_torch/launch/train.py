@@ -8,7 +8,7 @@ the training side.
 
 It runs on the card; ``--device cpu`` runs on the CPU.  The reference's
 ``--dryrun`` (lowering the sharded step for a TPU mesh) is not ported
-(ROADMAP A14).  ``main`` returns each step's stats as floats.
+(ROADMAP A14b).  ``main`` returns each step's stats as floats.
 """
 from __future__ import annotations
 

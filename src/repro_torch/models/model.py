@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -75,14 +75,15 @@ class Runtime:
     """The reference's ``Runtime`` knobs for one device.  The fields of
     ``_A14_FIELDS`` (expert parallelism, meshes, sharding, context
     parallelism) exist so that a caller setting them fails loudly: they
-    are not ported yet (ROADMAP A14).  The reference's XLA-only
+    are not ported yet (ROADMAP A14b; the serving engine's sharded mixed
+    step is ``EngineConfig.mesh``).  The reference's XLA-only
     ``unroll_layers`` and ``skip_masked_blocks`` are left out."""
     q_block: int = 512                  # flash_attention_remat's tiles
     kv_block: int = 1024
     remat: bool = False                 # recompute each layer in backward
     flash_remat: bool = False           # flash_attention_remat
     kv_cache_quant: bool = False        # int8 decode caches
-    # not ported (A14): any value but the default raises
+    # not ported (A14b): any value but the default raises
     moe_impl: str = "masked_dense"      # the other, expert_parallel
     capacity_factor: float = 1.25       # expert_parallel's
     mesh: Any = None
@@ -99,7 +100,7 @@ class Runtime:
                 raise NotImplementedError(
                     f"Runtime.{f.name}: expert parallelism, meshes, "
                     "sharding and context parallelism are not ported yet "
-                    "(ROADMAP A14)")
+                    "(ROADMAP A14b)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -118,7 +119,7 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def effective_window(cfg: ModelConfig) -> int:
     """The attention window (0: none); the reference's
-    ``Runtime.window_override`` is not ported (A14)."""
+    ``Runtime.window_override`` is not ported (A14b)."""
     return cfg.sliding_window
 
 
@@ -149,13 +150,21 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
-                device="cuda") -> Params:
+                device="cuda",
+                shard: Optional[Callable[[Tuple, Params], Params]] = None
+                ) -> Params:
     """Random weights with the reference's shapes and standard deviations
     (``init_params``/``init_attn``/``init_mlp``/``init_moe``/``init_ssm``/
     ``init_embeddings``), drawn
     from ``generator``, which must live on ``device``.  The values differ
     from the reference's ``jax.random`` streams; tests that compare the
-    two packages convert the reference's weights instead."""
+    two packages convert the reference's weights instead.
+
+    ``shard(path, subtree)``: applied to the embeddings and to each layer
+    as soon as it is drawn (``distributed.sharding.shard_tree`` with a
+    rank's layout), so a rank of a sharded engine never holds more than
+    one full layer; the draws, and so the values, are the unsharded
+    ones."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = L.dtype_of(cfg)
@@ -187,18 +196,21 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
             layer["xln"], layer["xattn"] = ones(), attn()
         return layer
 
+    keep = shard or (lambda path, tree: tree)
     v = L.padded_vocab(cfg)
     embed = {"tok": normal((v, d), 0.02)}
     if not cfg.tie_embeddings:
         embed["unembed"] = normal((d, v), 0.02)
-    layers = [{"ln": ones(), "ssm": init_ssm(generator, cfg, dtype, dev)}
-              if kind == SSM else attn_layer(cfg.is_encoder_decoder)
-              for kind in cfg.pattern()]
+    embed = keep(("embed",), embed)
+    layers = [keep(("layers", i),
+                   {"ln": ones(), "ssm": init_ssm(generator, cfg, dtype, dev)}
+                   if kind == SSM else attn_layer(cfg.is_encoder_decoder))
+              for i, kind in enumerate(cfg.pattern())]
     params = {"embed": embed, "final_norm": ones(), "layers": layers}
     if cfg.is_encoder_decoder:
         params["encoder"] = {
-            "layers": [attn_layer(False)
-                       for _ in range(cfg.num_encoder_layers)],
+            "layers": [keep(("encoder", "layers", i), attn_layer(False))
+                       for i in range(cfg.num_encoder_layers)],
             "final_norm": ones()}
     return params
 
@@ -210,17 +222,26 @@ def iter_layers(params: Params, cfg: ModelConfig
         yield kind, lp
 
 
+def _reduced(y: torch.Tensor, tp, part: str) -> torch.Tensor:
+    """``y`` summed over the model axis where ``tp`` (a rank's
+    ``distributed.parallel.TensorParallel``) splits ``part``."""
+    return y if tp is None else tp.reduce(y, part)
+
+
 def attn_sublayer_full(lp: Params, cfg: ModelConfig, x: torch.Tensor,
                        positions: torch.Tensor, rt: Optional[Runtime] = None,
                        alora: Optional[Params] = None,
                        adapter_idx: Optional[torch.Tensor] = None, *,
-                       causal: bool = True, return_kv: bool = False):
+                       causal: bool = True, return_kv: bool = False,
+                       tp=None):
     """Full-sequence attention sublayer with its residual.  x: (B, S, d);
     positions: (B, S).  ``alora``/``adapter_idx``: one layer's stacked
     adapter weights (leading slot axis) and the per-token slot, each Q/K/V
     projection one fused aLoRA call.  Causal attention takes the
     configuration's window; ``rt.flash_remat`` selects the recomputing
-    backward.  Returns (x, (k, v) after RoPE | None)."""
+    backward.  ``tp``: a rank's share of a sharded step (``cfg`` then
+    carries the rank's head counts; Wo's partial sums are reduced).
+    Returns (x, (k, v) after RoPE | None)."""
     rt = rt or Runtime()
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = L.qkv_project(lp["attn"], cfg, h, alora, adapter_idx)
@@ -232,7 +253,7 @@ def attn_sublayer_full(lp: Params, cfg: ModelConfig, x: torch.Tensor,
                                   rt.kv_block)
     else:
         o = flash_attention(q, k, v, causal=causal, window=window)
-    x = x + L.out_project(lp["attn"], cfg, o)
+    x = x + _reduced(L.out_project(lp["attn"], cfg, o), tp, "attn")
     return x, ((k, v) if return_kv else None)
 
 
@@ -257,33 +278,40 @@ def encoder_kv(lp: Params, cfg: ModelConfig, enc_out: torch.Tensor
 
 
 def run_encoder(enc_params: Params, cfg: ModelConfig, frames: torch.Tensor,
-                rt: Optional[Runtime] = None) -> torch.Tensor:
+                rt: Optional[Runtime] = None, tp=None) -> torch.Tensor:
     """The bidirectional encoder over stub frame embeddings (B, Se, d),
     RoPE on the frame positions as in the reference; returns the final
-    normed output in the model dtype."""
+    normed output in the model dtype.  ``tp``: as in
+    :func:`attn_sublayer_full`."""
     x = frames.to(L.dtype_of(cfg))
     B, Se, _ = x.shape
     positions = torch.arange(Se, device=x.device).expand(B, Se)
     for lp in enc_params["layers"]:
-        x, _ = attn_sublayer_full(lp, cfg, x, positions, rt, causal=False)
-        x = mlp_sublayer(lp, cfg, x, rt)
+        x, _ = attn_sublayer_full(lp, cfg, x, positions, rt, causal=False,
+                                  tp=tp)
+        x = mlp_sublayer(lp, cfg, x, rt, tp=tp)
     return L.rmsnorm(x, enc_params["final_norm"], cfg.norm_eps)
 
 
 def mlp_sublayer(lp: Params, cfg: ModelConfig, x: torch.Tensor,
-                 rt: Optional[Runtime] = None, *, with_aux: bool = False):
+                 rt: Optional[Runtime] = None, *, with_aux: bool = False,
+                 tp=None):
     """MLP or MoE sublayer with its residual (the reference's dispatch on
     ``cfg.moe``).  Returns x; with ``with_aux``, (x, aux) as the
     reference's does: the MoE load-balance loss, a float32 zero for a
     dense MLP.  The serving steps leave ``with_aux`` off and compute no
-    aux."""
+    aux.  ``tp``: a rank's share of a sharded step (its slice of the
+    experts or of d_ff; the partial outputs are reduced)."""
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
         y, aux = moe_apply(lp["moe"], cfg, h,
                            impl=(rt or Runtime()).moe_impl,
-                           with_aux=with_aux)
+                           with_aux=with_aux,
+                           experts=None if tp is None or not tp.layout.moe
+                           else tp.layout.experts)
+        y = _reduced(y, tp, "moe")
     else:
-        y = L.mlp_apply(lp["mlp"], cfg, h)
+        y = _reduced(L.mlp_apply(lp["mlp"], cfg, h), tp, "mlp")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return (x + y, aux) if with_aux else x + y
 
@@ -506,7 +534,7 @@ def prefill_to_decode_caches(cfg: ModelConfig, prefill_caches: List[Params],
     ring buffer's slot ``p % W`` for the last min(S, W) tokens.  SSM
     states are copied (``decode_step`` updates its caches in place);
     cross K/V carry over as they are.  (The reference's ``rt`` argument
-    only carries its window override, A14.)"""
+    only carries its window override, A14b.)"""
     window = effective_window(cfg)
     s_cache = _cache_len(cfg, max_len)
     S = seq_len

@@ -103,15 +103,21 @@ def _hidden(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def moe_masked_dense(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                     with_aux: bool = False
+                     with_aux: bool = False, experts: Optional[range] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(..., d) -> (..., d), exact, E× the compute of one expert: one
     batched product per weight over the expert axis, then one weighted
-    sum over E.  Returns (out, aux) as :func:`route` gives aux."""
+    sum over E.  Returns (out, aux) as :func:`route` gives aux.
+
+    ``experts``: the range of experts ``p``'s stacks hold (a rank of a
+    sharded step; the router stays whole), whose partial sum is
+    returned; None: all of them."""
     E, d = cfg.moe.num_experts, cfg.d_model
     x2 = x.reshape(-1, d)
     weights, idx, aux = route(p, cfg, x2, with_aux=with_aux)
     w = expert_weights(weights, idx, E, x.dtype)              # (T, E)
+    if experts is not None:
+        w = w[:, experts.start:experts.stop]
     y = torch.matmul(_hidden(p, cfg, x2.unsqueeze(0)), p["w_down"])
     out = (y * w.T.unsqueeze(-1)).sum(0)                     # (T, d)
     return out.reshape(x.shape), aux
@@ -135,11 +141,13 @@ def moe_masked_dense_ref(p: Params, cfg: ModelConfig, x: torch.Tensor
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-              impl: str = "masked_dense", with_aux: bool = False
+              impl: str = "masked_dense", with_aux: bool = False,
+              experts: Optional[range] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     if impl == "masked_dense":
-        return moe_masked_dense(p, cfg, x, with_aux=with_aux)
+        return moe_masked_dense(p, cfg, x, with_aux=with_aux,
+                                experts=experts)
     if impl == "expert_parallel":
         raise NotImplementedError(
-            "expert-parallel MoE is not ported yet (ROADMAP A14)")
+            "expert-parallel MoE is not ported yet (ROADMAP A14b)")
     raise ValueError(f"unknown moe impl {impl!r}")

@@ -223,7 +223,7 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
         delta = _all_slots_delta(x, alora, adapter_idx)
         z = z + delta[..., :d_inner]
         xBC = xBC + delta[..., d_inner:d_inner + conv_ch]
-        dt = dt + delta[..., d_inner + conv_ch:]
+        dt = dt + delta[..., d_inner + conv_ch:d_inner + conv_ch + nh]
     seq_valid = None
     if valid_len is not None:
         seq_valid = torch.arange(S, device=x.device) < valid_len
@@ -303,7 +303,7 @@ def ssd_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
         delta = _all_slots_delta(x0, alora, idx)
         z = z + delta[:, :d_inner]
         xBC = xBC + delta[:, d_inner:d_inner + conv_ch]
-        dt = dt + delta[:, d_inner + conv_ch:]
+        dt = dt + delta[:, d_inner + conv_ch:d_inner + conv_ch + nh]
     full = torch.cat([conv_state, xBC[:, None, :]], dim=1)  # (B, W, ch)
     conv_out = F.silu(torch.einsum("bwc,wc->bc", full.float(),
                                    p["conv_w"].float()) + p["conv_b"].float())
@@ -323,9 +323,15 @@ def ssd_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                   eps: float) -> torch.Tensor:
+                   eps: float, tp=None) -> torch.Tensor:
+    """The gated RMSNorm over d_inner; on a rank holding a slice of the
+    heads (``tp``), the mean of squares is over every rank's channels."""
     y = y * F.silu(z.float())
-    var = y.square().mean(dim=-1, keepdim=True)
+    if tp is None or not tp.layout.ssm:
+        var = y.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp.reduce(y.square().sum(dim=-1, keepdim=True), "ssm") \
+            / tp.layout.d_inner
     return y * torch.rsqrt(var + eps) * w.float()
 
 
@@ -359,11 +365,12 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                        snap_ssm_out: torch.Tensor, snap_conv_out: torch.Tensor,
                        alora: Optional[Params] = None,
                        adapter_idx: Optional[torch.Tensor] = None,
-                       active_slots: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       active_slots: Optional[torch.Tensor] = None,
+                       tp=None) -> torch.Tensor:
     """One SSM sublayer over a mixed ragged batch.
 
-    x:         (T, d) packed hidden rows
+    x:         (T, d) packed hidden rows (a rank's own rows under token
+               sharding; every per-token argument below spans all rows)
     live_ssm:  (MR, nh, N, P) float32 — per-run-slot recurrent state
     live_conv: (MR, W-1, ch)          — per-run-slot raw conv window
     tok_slots: (T,) int32 — token → its request's run slot
@@ -376,7 +383,14 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     snap_conv_out: (Cb, W-1, ch) in the pool's dtype — written with the
                    raw conv windows ending at ``snap_rows``
     alora/adapter_idx/active_slots: the fused input-projection adapter
-               delta (``layers.lora_delta_dispatch``)
+               delta (``layers.lora_delta_dispatch``; ``adapter_idx`` of
+               x's rows)
+    tp:        a rank's share of a sharded step
+               (``distributed.parallel.TensorParallel``): ``p``, the pools
+               and the adapter hold the rank's heads (the widths are read
+               off ``p``); xBC and dt rows are gathered over the data
+               axis before the conv and the scan, the gated norm and
+               out_proj reduce over the model axis
 
     Updates ``live_ssm`` and ``live_conv`` IN PLACE at ``row_slots`` (the
     reference returns the updated pools instead; every read of the old
@@ -384,9 +398,11 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     target one dump slot, the only place duplicate writes may land.
     Returns y (T, d) in x's dtype."""
     s = cfg.ssm
-    T = x.shape[0]
-    d_inner, nh, conv_ch = ssm_dims(cfg)
-    G, N, P = s.ngroups, s.state_dim, s.head_dim
+    N, P = s.state_dim, s.head_dim
+    # the (rank's) widths: its heads, their x channels, their groups
+    nh, d_inner, conv_ch = (p["A_log"].shape[0], p["norm_w"].shape[0],
+                            p["conv_w"].shape[1])
+    G = (conv_ch - d_inner) // (2 * N)
     hpg = nh // G
     W = s.conv_width
     dev = x.device
@@ -402,7 +418,13 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                                     active_slots)
         z = z + delta[:, :d_inner]
         xBC = xBC + delta[:, d_inner:d_inner + conv_ch]
-        dtr = dtr + delta[:, d_inner + conv_ch:]
+        # (a card's slot stack may pad B's width with zero columns)
+        dtr = dtr + delta[:, d_inner + conv_ch:d_inner + conv_ch + nh]
+    own = slice(None)
+    if tp is not None:
+        own = tp.rows(row_cols.shape[0])
+        xBC, dtr = tp.gather_rows(xBC), tp.gather_rows(dtr)
+    T = xBC.shape[0]
 
     # ---- ragged causal conv -------------------------------------------
     cols, slots = row_cols.long(), tok_slots.long()
@@ -440,6 +462,8 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     live_ssm.index_copy_(0, row_slots.long(), kept[:R])
     live_conv.index_copy_(0, row_slots.long(), new_rows)
 
-    y = y.float() + p["D"][:, None] * xs
-    y = _rmsnorm_gated(y.reshape(T, d_inner), z, p["norm_w"], cfg.norm_eps)
-    return (y @ p["out_proj"].float()).to(x.dtype)
+    y = y[own].float() + p["D"][:, None] * xs[own]
+    y = _rmsnorm_gated(y.reshape(-1, d_inner), z, p["norm_w"], cfg.norm_eps,
+                       tp)
+    out = y @ p["out_proj"].float()
+    return (out if tp is None else tp.reduce(out, "ssm")).to(x.dtype)

@@ -27,6 +27,16 @@ RESIDENT(slot s) → (LRU eviction once unpinned) HOST-ONLY.
 
 Block hashes salt on the registration uid ``name#vN``, never on the slot
 or the bare name, so slot reuse cannot alias prefix-cache entries.
+
+On a rank of a sharded engine (``mesh``) the slot stacks hold the
+rank's slice: A whole (rank ≪ d), each B on the output columns of the
+rank's heads (the base projection's columns), cut from the host copy
+at registration, so the grouped-LoRA delta adds into the rank's
+column-parallel projection with no collective of its own.  On a card,
+an SSM B stack whose width the kernel does not take (a rank's slice of
+the fused [z | xBC | dt] columns: 128 + 160 + 4 = 292 on the reduced
+mamba2 at model=2) is padded with zero columns to the kernel's
+alignment; the delta's padded columns are never read.
 """
 from __future__ import annotations
 
@@ -38,7 +48,8 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ragged_lora import RANKS
+from repro_torch.distributed.sharding import layout_of, shard_tree
+from repro_torch.kernels.ragged_lora import ALIGN, RANKS
 from repro_torch.core.alora import (
     AdapterSpec,
     adapter_rank_of,
@@ -99,7 +110,10 @@ class AdapterPool:
                  staging_budget: Optional[int] = None,
                  staging_ttl: int = 64,
                  evict_policy: Optional[
-                     Callable[[Sequence[str]], str]] = None):
+                     Callable[[Sequence[str]], str]] = None,
+                 mesh=None):
+        """``mesh``: the ``DeviceMesh`` this process is a rank of (the
+        stacks hold the rank's slice; None: whole)."""
         if num_slots < 1 or slot_rank < 1 or staging_ttl < 1 \
                 or (staging_budget is not None and staging_budget < 1):
             raise ValueError("num_slots, slot_rank, staging_ttl and "
@@ -111,11 +125,20 @@ class AdapterPool:
             else Tracer(enabled=False)
         self.num_slots = num_slots
         self.slot_rank = slot_rank
+        self.layout = layout = None if mesh is None \
+            else layout_of(cfg, mesh)
         dtype = dtype_of(cfg)
+
+        def local(name, shape):
+            if layout is not None:
+                shape = layout.local_shape((name,), shape)
+            if name == "b" and self.device.type == "cuda":
+                shape = shape[:-1] + (-(-shape[-1] // ALIGN) * ALIGN,)
+            return shape
         # one slot stack per leaf of each layer, shaped by its kind
         self.layers: List[Params] = [
-            {name: torch.zeros((num_slots + 1,) + shape, dtype=dtype,
-                               device=self.device)
+            {name: torch.zeros((num_slots + 1,) + local(name, shape),
+                               dtype=dtype, device=self.device)
              for name, shape in leaf_shapes(cfg, slot_rank, kind).items()}
             for kind in cfg.pattern()]
         # staging copies run here, off the compute stream (card only)
@@ -163,11 +186,14 @@ class AdapterPool:
         self._versions[spec.name] = ver
         uid = f"{spec.name}#v{ver}"
         padded = pad_adapter_rank(weights, self.slot_rank)
+        layers = per_layer_adapters(self.cfg, padded)
+        if self.layout is not None:
+            layers = shard_tree(layers, self.layout)
         pin = self._side is not None
         host = [{k: (v.detach().cpu().pin_memory() if pin
                      else v.detach().cpu().clone())
                  for k, v in lw.items()}
-                for lw in per_layer_adapters(self.cfg, padded)]
+                for lw in layers]
         self._by_uid[uid] = AdapterRegistration(spec=spec, uid=uid,
                                                 host_layers=host)
         self._by_name[spec.name] = uid
@@ -347,7 +373,8 @@ class AdapterPool:
             compute.wait_event(reg.ready)
         for li, lw in enumerate(reg.device_layers):
             for k, w in lw.items():
-                self.layers[li][k][slot].copy_(w)
+                # (a padded B keeps its trailing zero columns)
+                self.layers[li][k][slot][..., :w.shape[-1]].copy_(w)
                 if compute is not None:
                     # the staged tensor is now read on the compute stream:
                     # keep its memory from reuse until that read is done

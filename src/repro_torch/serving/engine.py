@@ -29,6 +29,17 @@ int32 ids.  ``EngineConfig(execution_mode="sequential")`` runs the
 reference's oracle of that path instead: the same schedule, executed as
 one device call per decode batch and one per prefill chunk, each
 synchronous and returning whole logits to the host.
+
+``EngineConfig.mesh`` serves the mixed step tensor-parallel over a
+``(data, model)`` ``DeviceMesh`` of ``torch.distributed`` ranks
+(``launch.mesh.make_host_mesh``), optionally token-sharded over
+``data`` (``data_shard_tokens``).  Every rank runs this same engine over
+the same requests, so the block manager, the prefix cache, the adapter
+registry and the pool decisions stay identical on every rank as long as
+the virtual clock does: under a mesh it advances by rank 0's measured
+wall time, broadcast over a CPU group (admission reads ``arrival_time
+<= clock``; ranks that admitted different requests would deadlock in
+the step's next collective).
 """
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ from itertools import islice
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.activation_mask import (adapter_index_for_positions,
@@ -117,7 +130,27 @@ class EngineConfig:
     time_scale: float = 1.0
     # None follows REPRO_TRACE (on unless "0")
     trace: Optional[bool] = None
+    # tensor-parallel serving: the (data, model) DeviceMesh this process
+    # is one rank of (mixed mode only), and whether the packed token axis
+    # splits over its data axis
+    mesh: Optional[object] = None
+    data_shard_tokens: bool = True
 
+
+class _RankZeroClock:
+    """Every rank's clock step is rank 0's measured wall time, broadcast
+    over a CPU (gloo) group: the ranks' schedules then never diverge."""
+
+    def __init__(self):
+        # gloo moves CPU tensors; an NCCL world needs a gloo group beside
+        self.group = None if dist.get_backend() == "gloo" \
+            else dist.new_group(backend="gloo")
+        self.buf = torch.zeros(1, dtype=torch.float64)
+
+    def __call__(self, dt: float) -> float:
+        self.buf[0] = dt
+        dist.broadcast(self.buf, src=0, group=self.group)
+        return float(self.buf[0])
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *,
@@ -137,6 +170,10 @@ class Engine:
                 or engine_cfg.admission_starvation_cap < 1:
             raise ValueError("admission_window and "
                              "admission_starvation_cap must be >= 1")
+        mesh = engine_cfg.mesh
+        if mesh is not None and engine_cfg.execution_mode != "mixed":
+            raise ValueError("a sharded engine (EngineConfig.mesh) serves "
+                             "the mixed execution mode only")
         self.cfg = cfg
         self.ecfg = engine_cfg
         adapters = adapters or []
@@ -156,7 +193,7 @@ class Engine:
                 tracer=self.tracer,
                 staging_budget=engine_cfg.adapter_staging_budget,
                 staging_ttl=engine_cfg.adapter_staging_ttl,
-                evict_policy=engine_cfg.adapter_evict_policy)
+                evict_policy=engine_cfg.adapter_evict_policy, mesh=mesh)
             for spec, w in adapters:
                 self.adapter_pool.register(spec, w)
         rcfg = RunnerConfig(block_size=engine_cfg.block_size,
@@ -166,7 +203,9 @@ class Engine:
         self.runner = ModelRunner(
             cfg, params, rcfg,
             self.adapter_pool.layers if self.adapter_pool else None,
-            device=device, tracer=self.tracer)
+            device=device, tracer=self.tracer, mesh=mesh,
+            data_shard_tokens=engine_cfg.data_shard_tokens)
+        self._rank_clock = None if mesh is None else _RankZeroClock()
         # each manager exists only when its kind of layer does
         self.kv_mgr = BlockManager(engine_cfg.num_blocks,
                                    engine_cfg.block_size) \
@@ -196,6 +235,14 @@ class Engine:
         # steps scheduled and assembled while the previous one was still
         # on the device (the overlap the pipeline exists for)
         self.async_overlap_steps = 0
+
+    def _advance_clock(self, t0: float) -> None:
+        """Advance the virtual clock by the wall time since ``t0`` (rank
+        0's, under a mesh) times ``time_scale``."""
+        dt = (time.perf_counter() - t0) * self.ecfg.time_scale
+        if self._rank_clock is not None:
+            dt = self._rank_clock(dt)
+        self.clock += dt
 
     # ------------------------------------------------------------------
     # adapter lifecycle (delegates to the AdapterPool)
@@ -712,7 +759,7 @@ class Engine:
             adapter_idx=np.array([self._adapter_idx(r, positions[i:i + 1])[0]
                                   for i, r in enumerate(ok)], np.int32),
             run_slots=np.array([max(r.run_slot, 0) for r in ok], np.int32))
-        self.clock += (time.perf_counter() - t0) * self.ecfg.time_scale
+        self._advance_clock(t0)
         for r, t in zip(ok, np.argmax(logits, axis=-1)):
             self._postprocess_decode(r, int(t))
 
@@ -726,7 +773,7 @@ class Engine:
                 adapter_idx_row=self._adapter_idx(r, np.arange(lo, hi)),
                 run_slot=max(r.run_slot, 0))
             logits = logits.float().cpu().numpy()
-            self.clock += (time.perf_counter() - t0) * self.ecfg.time_scale
+            self._advance_clock(t0)
             self._postprocess_prefill(r, lo, hi, logits, boundary)
 
     # ------------------------------------------------------------------
@@ -820,7 +867,7 @@ class Engine:
         self.t_assembly += time.perf_counter() - t_host
         t0 = time.perf_counter()
         handle = self.runner.submit_batch(mb)   # enqueued, not awaited
-        self.clock += (time.perf_counter() - t0) * self.ecfg.time_scale
+        self._advance_clock(t0)
         # decode rows first, then prefill — the reference's order
         retires: List[Tuple] = []
         for i, r in enumerate(decodes):
@@ -854,7 +901,7 @@ class Engine:
         state-snapshot claim needs returning."""
         t0 = time.perf_counter()
         sampled = self.runner.fetch_sampled(inf.handle)
-        self.clock += (time.perf_counter() - t0) * self.ecfg.time_scale
+        self._advance_clock(t0)
         for r, epoch, row, patch_idx, bpos, slot in inf.retires:
             if r.epoch != epoch:
                 if slot is not None:

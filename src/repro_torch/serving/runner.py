@@ -56,6 +56,21 @@ Pools (device, updated in place):
                                             slot; the last slot is a
                                             dump slot
 
+Sharded (``mesh=``): the runner is one rank of a ``(data, model)`` mesh
+(``distributed.parallel.TensorParallel``).  It holds its slice of the
+weights (``distributed.sharding.RankLayout``: its query heads and the
+K/V heads they read, its d_ff columns or experts, its SSM heads, its
+vocab rows), pools of that slice (K/V ``(La, NB, bs, KV/ms, hd)``,
+SSM state and conv windows of its heads), and runs the same kernels on
+it; the row-parallel sums, the vocab-parallel embedding and the logits'
+vocab gather are collectives over ``model``.  With token sharding each
+data rank computes its rows of the packed token axis (the bucket is a
+multiple of the data axis) and gathers over ``data`` what reads across
+rows: the new K/V rows before the pool write (the pools are replicated
+over ``data``), the SSM's xBC and dt rows before the conv and scan, the
+hidden rows before the logits.  Every rank samples the same ids and
+holds the same ``tok_buf``.
+
 The boundary states of a step are a fresh allocation per step, held by
 its ``StepHandle``: the engine submits step N+1 before it retires step
 N, so a buffer reused across steps would be overwritten.  Snapshot
@@ -75,6 +90,8 @@ import torch
 
 from repro_torch.common import resolve_device, tree_map
 from repro_torch.configs.base import ATTN, SSM, ModelConfig
+from repro_torch.distributed.parallel import TensorParallel
+from repro_torch.distributed.sharding import shard_tree
 from repro_torch.models import layers as Lyr
 from repro_torch.models import model as M
 from repro_torch.models import ssm as ssm_lib
@@ -220,10 +237,16 @@ class HostBufferPool:
 class ModelRunner:
     def __init__(self, cfg: ModelConfig, params, rcfg: RunnerConfig,
                  adapter_layers: Optional[List[Any]] = None, *,
-                 device="cuda", tracer: Optional[Tracer] = None):
+                 device="cuda", tracer: Optional[Tracer] = None,
+                 mesh=None, data_shard_tokens: bool = True):
         """``adapter_layers``: per-layer slot stacks (normally the
         AdapterPool's ``layers``, written in place as adapters move
-        through slots); None for an adapter-free runner."""
+        through slots; the rank's slice under a mesh); None for an
+        adapter-free runner.  ``mesh``: the ``(data, model)``
+        ``DeviceMesh`` this runner is one rank of (``params`` may be the
+        full tree or the rank's slice: each leaf is cut before it moves
+        to the device); ``data_shard_tokens``: split the packed token
+        axis over ``data``."""
         M.check_supported(cfg)
         if cfg.ssm is not None and cfg.ssm.chunk_size != rcfg.block_size:
             # the sequential prefill's SSD chunks end on KV-block
@@ -233,7 +256,19 @@ class ModelRunner:
         self.cfg = cfg
         self.rcfg = rcfg
         self.device = resolve_device(device)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.mesh = mesh
+        self.tp: Optional[TensorParallel] = None
+        if mesh is None:
+            self.params = tree_map(lambda t: t.to(self.device), params)
+        else:
+            self.tp = TensorParallel(cfg, mesh,
+                                     data_shard_tokens=data_shard_tokens)
+            self.params = shard_tree(params, self.tp.layout, self.device)
+        # the configuration the rank reshapes its heads by
+        self.lcfg = cfg if self.tp is None else self.tp.lcfg
+        # pow2 token buckets double from the data axis, so its ranks
+        # split every bucket evenly
+        self._tok_bucket_lo = 1 if self.tp is None else self.tp.token_shards
         self.kinds = list(cfg.pattern())
         self.La = self.kinds.count(ATTN)
         self.Ls = self.kinds.count(SSM)
@@ -259,14 +294,15 @@ class ModelRunner:
         self.k_pool = self.v_pool = None
         if self.La:
             shape = (self.La, rcfg.num_blocks, rcfg.block_size,
-                     cfg.num_kv_heads, cfg.head_dim)
+                     self.lcfg.num_kv_heads, cfg.head_dim)
             self.k_pool = torch.zeros(shape, dtype=dtype, device=dev)
             self.v_pool = torch.zeros(shape, dtype=dtype, device=dev)
         self.live_ssm = self.live_conv = None
         self.snap_ssm = self.snap_conv = None
         if self.Ls:
             s = cfg.ssm
-            _, nh, ch = ssm_lib.ssm_dims(cfg)
+            _, nh, ch = ssm_lib.ssm_dims(cfg) if self.tp is None \
+                else self.tp.layout.ssm_local_dims()
             state = (nh, s.state_dim, s.head_dim)
             window = (s.conv_width - 1, ch)
             MR, NS = rcfg.max_running, rcfg.num_state_slots
@@ -280,7 +316,7 @@ class ModelRunner:
                                          dtype=dtype, device=dev)
         self.xk_pool = self.xv_pool = None
         if cfg.is_encoder_decoder:
-            shape = (self.La, rcfg.max_running, cfg.num_kv_heads,
+            shape = (self.La, rcfg.max_running, self.lcfg.num_kv_heads,
                      cfg.encoder_seq_len, cfg.head_dim)
             self.xk_pool = torch.zeros(shape, dtype=torch.float32, device=dev)
             self.xv_pool = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -313,9 +349,10 @@ class ModelRunner:
                                   trailing=shape[1:], fill=None)
         buf[...] = frames
         fr = torch.from_numpy(buf).to(self.device, non_blocking=True)
-        enc = M.run_encoder(self.params["encoder"], cfg, fr[None])
+        enc = M.run_encoder(self.params["encoder"], self.lcfg, fr[None],
+                            tp=self.tp)
         for ai, (_, lp) in enumerate(M.iter_layers(self.params, cfg)):
-            xk, xv = M.encoder_kv(lp, cfg, enc)
+            xk, xv = M.encoder_kv(lp, self.lcfg, enc)
             self.xk_pool[ai, run_slot].copy_(xk[0].transpose(0, 1))
             self.xv_pool[ai, run_slot].copy_(xv[0].transpose(0, 1))
 
@@ -326,15 +363,23 @@ class ModelRunner:
         flattened row t sits at cell (rows[t], cols[t]) and attends over
         the encoder K/V of run slot lo + rows[t] (of run slots lo..lo+n-1,
         a view of the pools)."""
-        cfg = self.cfg
+        cfg = self.lcfg
         rows, cols, lo, n, n_cols = cross
         h = Lyr.rmsnorm(x, lp["xln"], cfg.norm_eps)
         q = (h @ lp["xattn"]["wq"]).reshape(-1, cfg.num_heads, cfg.head_dim)
         o = packed_cross_attention(q, self.xk_pool[ai, lo:lo + n],
                                    self.xv_pool[ai, lo:lo + n], rows, cols,
                                    n_cols)
-        return x + Lyr.out_project(lp["xattn"], cfg, o.reshape(
-            x.shape[:-1] + o.shape[1:]))
+        return x + self._reduce(Lyr.out_project(lp["xattn"], cfg, o.reshape(
+            x.shape[:-1] + o.shape[1:])), "attn")
+
+    def _reduce(self, y: torch.Tensor, part: str) -> torch.Tensor:
+        return y if self.tp is None else self.tp.reduce(y, part)
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        tok = self.params["embed"]["tok"]
+        return torch.index_select(tok, 0, ids) if self.tp is None \
+            else self.tp.embed(tok, ids)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -354,7 +399,7 @@ class ModelRunner:
         ``pe.astype(emb.dtype)``."""
         ids = torch.as_tensor(  # hotpath: sync-ok (once per admission)
             prompt, dtype=torch.int64, device=self.device)
-        emb = torch.index_select(self.params["embed"]["tok"], 0, ids)
+        emb = self._embed(ids)
         out = emb.float().cpu().numpy()  # hotpath: sync-ok (as above)
         log_d2h(self.d2h_fetches, int(out.size), str(out.dtype), "admit",
                 self.tracer)
@@ -379,7 +424,7 @@ class ModelRunner:
         C = 0 if mb.snap_rows is None else len(mb.snap_rows)
         dump_block = rc.num_blocks - 1
         dump_slot = rc.max_running - 1
-        Tb = next_pow2(max(T, 1))
+        Tb = next_pow2(max(T, 1), lo=self._tok_bucket_lo)
         Rb = next_pow2(max(R, 1))
         Cb = next_pow2(max(C, 1))
         nbb = next_pow2(max(max((len(t) for t in mb.block_tables),
@@ -460,11 +505,15 @@ class ModelRunner:
         docstring).  Updates the pools and ``tok_buf`` in place and
         returns the (Rb,) int32 sampled ids and the boundary states (a
         fresh pair per step; None without SSM layers).  ``cross``: the
-        cross-attention layout of :meth:`_cross_attend` (enc-dec)."""
-        cfg, p = self.cfg, self.params
-        tok = torch.where(fb, self.tok_buf[tok_slots], tok)
-        tok_emb = torch.index_select(p["embed"]["tok"], 0, tok)
-        x = torch.where(use[:, None], emb.to(tok_emb.dtype), tok_emb)
+        cross-attention layout of :meth:`_cross_attend` (enc-dec).  On a
+        rank of a sharded step, ``x`` holds the rank's ``own`` rows."""
+        cfg, lcfg, p, tp = self.cfg, self.lcfg, self.params, self.tp
+        own = slice(None) if tp is None else self.tp.rows(tok.shape[0])
+        tok = torch.where(fb[own], self.tok_buf[tok_slots[own]], tok[own])
+        tok_emb = self._embed(tok)
+        x = torch.where(use[own, None], emb[own].to(tok_emb.dtype), tok_emb)
+        if cross is not None:
+            cross = (cross[0][own], cross[1][own]) + cross[2:]
         boundary = None
         if self.Ls:
             Cb = snap.shape[0]
@@ -483,29 +532,37 @@ class ModelRunner:
                     live_conv=self.live_conv[si], tok_slots=tok_slots,
                     row_cols=cols, snap_rows=snap, last_rows=out_rows,
                     row_slots=run_slots, snap_ssm_out=boundary[0][si],
-                    snap_conv_out=boundary[1][si], alora=al, adapter_idx=ad,
-                    active_slots=act)
+                    snap_conv_out=boundary[1][si], alora=al,
+                    adapter_idx=ad[own], active_slots=act, tp=tp)
                 x = x + y
                 si += 1
                 continue
             h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = Lyr.qkv_project(lp["attn"], cfg, h, al, ad,
+            q, k, v = Lyr.qkv_project(lp["attn"], lcfg, h, al, ad[own],
                                       active_slots=act)
-            q = Lyr.apply_rope(q, pos, cfg.rope_theta)
-            k = Lyr.apply_rope(k, pos, cfg.rope_theta)
+            q = Lyr.apply_rope(q, pos[own], cfg.rope_theta)
+            k = Lyr.apply_rope(k, pos[own], cfg.rope_theta)
+            if tp is not None:
+                k, v = self.tp.gather_rows(k), self.tp.gather_rows(v)
             # padded rows all hit (dump_block, 0): duplicate indices, but
             # nothing reads the dump block within a valid q_len
             self.k_pool[ai].index_put_((wb, wo), k)
             self.v_pool[ai].index_put_((wb, wo), v)
             o = ragged_paged_attention(q, self.k_pool[ai], self.v_pool[ai],
-                                       bt, rows, qln, window=self.window)
-            x = x + Lyr.out_project(lp["attn"], cfg, o)
+                                       bt, rows[own], qln[own],
+                                       window=self.window)
+            x = x + self._reduce(Lyr.out_project(lp["attn"], lcfg, o), "attn")
             if cross is not None:
                 x = self._cross_attend(lp, x, ai, cross)
-            x = M.mlp_sublayer(lp, cfg, x)
+            x = M.mlp_sublayer(lp, cfg, x, tp=tp)
             ai += 1
         x = Lyr.rmsnorm(x, p["final_norm"], cfg.norm_eps)
+        if tp is not None:
+            x = self.tp.gather_rows(x)
         logits = M.logits_for(p, cfg, torch.index_select(x, 0, out_rows))
+        if tp is not None:
+            # the rank's vocab slice → every rank's whole padded row
+            logits = self.tp.gather_vocab(logits)
         sampled = torch.argmax(logits, dim=-1).to(torch.int32)
         # padded request rows all target the dump slot
         self.tok_buf.index_put_((run_slots,), sampled)
@@ -548,6 +605,7 @@ class ModelRunner:
         (Vpad,) on the device, the boundary states (b_ssm (Ls, nc, nh, N,
         P), b_conv (Ls, nc, W-1, ch)) at the chunk's block ends, None
         without SSM layers)."""
+        self._unsharded("prefill_chunk")
         rc, cfg = self.rcfg, self.cfg
         C = hi - lo
         Cb = next_pow2(C, lo=min(rc.block_size, rc.chunk_tokens))
@@ -561,6 +619,12 @@ class ModelRunner:
         self.call_counts["prefill_chunk"] += 1
         return self._prefill_impl(self._tensor(x), C, lo, self._tensor(bt),
                                   self._tensor(aidx), run_slot)
+
+    def _unsharded(self, what: str) -> None:
+        if self.tp is not None:
+            raise ValueError(f"{what}: the sequential mode runs on one "
+                             "device; a sharded runner serves the mixed "
+                             "step")
 
     def _prefill_impl(self, x, C: int, lo: int, bt, aidx, slot: int):
         cfg, p, rc = self.cfg, self.params, self.rcfg
@@ -625,6 +689,7 @@ class ModelRunner:
         """One decode step of a batch of requests, padded to pow2 rows
         (padded rows write the dump block and the dump slot).  Returns
         the (B, Vpad) float32 logits of the real rows on the host."""
+        self._unsharded("decode_batch")
         rc = self.rcfg
         B = len(tokens)
         Bb = next_pow2(B)

@@ -15,6 +15,7 @@ C fitted to PyTorch, on AST fixtures and on the real port tree:
   pool with ``non_blocking=True`` and writes the same encoder K/V."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -498,6 +499,27 @@ def test_lc_teardown_has_no_xkv_kind(tmp_path):
 # ------------------------------------------------------- the real tree
 def test_real_tree_lints_clean():
     assert lint_tree(SRC_ROOT) == []
+
+
+def test_sharded_step_collectives_in_scope(tmp_path):
+    """The sharded step's collectives (``distributed/parallel.py``) are
+    on the hot graph: a host sync in one the runner reaches fails."""
+    shutil.copytree(os.path.join(SRC_ROOT, "repro_torch"),
+                    tmp_path / "repro_torch",
+                    ignore=shutil.ignore_patterns("csrc", "__pycache__"))
+    path = tmp_path / "repro_torch" / "distributed" / "parallel.py"
+    src = path.read_text()
+    for fn, sync in (
+            ("def gather_rows(self, x: torch.Tensor) -> torch.Tensor:",
+             "x.cpu()"),
+            ("def reduce(self, y: torch.Tensor, part: str) -> torch.Tensor:",
+             "y.sum().item()")):
+        assert fn in src
+        src = src.replace(fn, f"{fn}\n        {sync}")
+    path.write_text(src)
+    vs = lint_tree(str(tmp_path))
+    assert {v.message.split(":")[0] for v in vs} >= {
+        "TensorParallel.gather_rows", "TensorParallel.reduce"}
 
 
 def test_real_tree_lifecycle_clean():

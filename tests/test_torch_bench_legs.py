@@ -7,6 +7,8 @@ legs) and ``bench_router``.  Compared: tokens (float32, exact), reused
 prompt tokens, the adapter pool's counters (evictions, acquire fails,
 stalled installs, ...), queue waits in steps, placements and fleet hit
 rates; one mixed-step call per work step."""
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -137,6 +139,23 @@ def test_mixed_batch_smoke(arch):
         assert rows[f"mixed_batch/{arch}/mixed_async/vs_sync_submission"][
             "d2h_max"] < jeng.cfg.vocab_size
         assert rows[f"mixed_batch/{arch}/trace_overhead"]["events"] > 0
+
+
+def test_mixed_batch_mesh_smoke():
+    """``--smoke --mesh model=2`` on two CPU ranks: the tensor-parallel
+    leg's tokens equal the reference's mixed mode's, with one mixed-step
+    call per work step, and its record is appended."""
+    rows = bench_mixed_batch.run(ARCH, smoke=True, device="cpu",
+                                 mesh={"data": 1, "model": 2})
+    jeng = RC.make_engine("alora", arch=ARCH, ecfg=JConfig(
+        max_running=8, max_batched_tokens=128, async_submission=False))
+    rids, steps, _, _ = RMB._workload(jeng, 7, 3, 24, 8)
+    row = rows[f"mixed_batch/{ARCH}/mixed@1x2/step_latency"]
+    assert row["tokens"] == ref_stage(jeng, rids)["tokens"]
+    assert row["steps"] == row["calls"] == steps
+    with open(common.results_path("sharded_step.jsonl")) as f:
+        rec = json.loads(f.read().splitlines()[-1])
+    assert rec["mesh"] == "1x2" and rec["device_calls_per_step"] == 1.0
 
 
 def test_router_smoke():

@@ -149,8 +149,9 @@ def test_run_sections(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,us_per_call,derived"
     assert out[-1].startswith("section/fig15/wall_s,")
-    assert set(run.sections()) == {"mixed_batch", "fig11", "fig10", "fig8",
-                                   "sec441", "fig15", "kernels"}
+    assert set(run.sections()) == {"mixed_batch", "mixed_batch_tp", "fig11",
+                                   "fig10", "fig8", "sec441", "fig15",
+                                   "kernels"}
     with pytest.raises(SystemExit):
         run.main(["fig6"])
 
