@@ -71,11 +71,13 @@ Phases, each of which exits non-zero on failure:
 3. the main paths at full width, random weights from a seed, each
    serving the paper's base → aLoRA pipeline through the mixed step with
    every kernel count set to 0 just before and read just after:
-   granite-3.2-8b (attention), mamba2-2.7b (pure SSM), zamba2-2.7b
+   granite-3.2-8b (attention), mamba2-2.7b (pure SSM; 16 of its 64
+   layers), zamba2-2.7b
    (hybrid), the dense families stablelm-12b, minitron-4b,
-   nemotron-4-15b and starcoder2-3b, the MoE models granite-moe-1b-a400m
+   nemotron-4-15b and starcoder2-3b (at half their depth: 20, 16, 16 and
+   15 layers), the MoE models granite-moe-1b-a400m
    and phi3.5-moe (24 of its 32 layers: all 32 do not fit on the card),
-   phi-3-vision-4.2b on images (576 patch embeddings under
+   phi-3-vision-4.2b (16 of its 32 layers) on images (576 patch embeddings under
    pseudo-tokens, then 256 text tokens; each eval reuses ≥ 832 tokens
    and a request on another image none) and whisper-large-v3 on audio
    (32 encoder and 32 decoder layers, 1500 frames of N(0, 0.02) per
@@ -201,7 +203,33 @@ Phases, each of which exits non-zero on failure:
    copies' share (``torch.profiler``); (c) mamba2-2.7b at full width,
    ``MAMBA_TP_LAYERS`` of its 64 layers, model=2: B3 and B2's one-pair
    entry once per SSM layer of each rank's mixed step, every eval
-   restoring a state snapshot.
+   restoring a state snapshot;
+10. the sharded full-sequence model, decode step and training
+   (``Runtime.mesh``: tensor-parallel over ``model``, the batch over
+   ``data``, expert-parallel MoE, context-parallel prefill, ZeRO-1) on
+   ranks sharing the card: (a) reduced float32 at (data, model) = (1, 2)
+   and (2, 2), each against the port's unsharded card run
+   (``repro_torch.benchmarks.sharded_model``): granite adapted
+   (``forward_full`` and 16 greedy decode steps; also at (1, 4),
+   its K/V heads replicated), mamba2 adapted (B5 on each rank's heads,
+   B2's one-pair entry on its in-projection columns) and
+   whisper, granite-moe's expert-parallel layer at capacity factors 32
+   and 0.05, stablelm's context-parallel forward and gradients, and one
+   TP + ZeRO-1 train step on granite and granite-moe: hidden states,
+   logits and gradients within 1e-5 of max, tokens exact, the train
+   step's loss, grad norm, params and moments within 1e-5; (b) full
+   width, bf16, model=2: granite-3.2-8b ``forward_full`` on 2 × 1,024
+   tokens with four rank-32 adapters (120 B6 a forward on each rank, 120
+   a ``decode_step``), mamba2-2.7b at ``FM_MAMBA_LAYERS`` layers (B5 once
+   a layer on each rank, B2's one-pair entry once a layer adapted), a TP
+   + ZeRO-1 train step at granite's widths × ``FM_TRAIN["layers"]``
+   layers at (2, 2): wall ms and peak GB a rank, and layer 0's B6
+   (Q, K and V, forward and decode step), B5 and B2 calls on each
+   rank's slice held against their plain versions on the same
+   tensors; (c) the dry run
+   (``repro_torch.launch.dryrun``) on both production meshes, and its
+   per-rank param bytes of granite-3.2-8b at model=2 equal to phase 9's
+   measured bytes on a rank.
 
 ``PERF.md`` gives its run time on one H100, the kernels' build included.
 
@@ -340,6 +368,17 @@ SEQ_ARCHS = ("granite-3.2-8b", "zamba2-2.7b", ENCDEC_ARCH)
 # phi3.5-moe on one 80 GB card: 24 of its 32 layers (all 32 are 83.7 GB
 # of bf16 weights)
 PHIMOE_LAYERS = 24
+# phase 3's depth (0: every layer), cut because its steps are host-bound
+# and their wall grows with depth: phi3.5-moe's cut, half the layers of
+# the dense families and phi-3-vision, and mamba2 at phase 9's
+# ``MAMBA_TP_LAYERS`` (16), so that phase 9 compares its sharded tokens
+# with these; granite (phase 9 at full depth), zamba2, granite-moe and
+# whisper serve every layer
+PHASE3_LAYERS = {"phi3.5-moe-42b-a6.6b": PHIMOE_LAYERS,
+                 "mamba2-2.7b": 16,
+                 "stablelm-12b": 20, "minitron-4b": 16,
+                 "nemotron-4-15b": 16, "starcoder2-3b": 15,
+                 "phi-3-vision-4.2b": 16}
 IMAGE_TOKEN = 1                 # the pseudo-token id under every patch
 
 
@@ -2789,10 +2828,11 @@ FULL_SWEEPS = dict(fig11=dict(prompt_lens=[192]), fig15=dict(batches=[4]),
 # ~47 MB of pinned host memory; the reference's 1,000 would be ~47 GB)
 # and 32 of the trace's 300 requests
 ZIPF_FULL = dict(n_adapters=128, n_requests=32)
-# (b) and (c) run granite-3.2-8b's widths at 20 of its 40 layers: the
+# (b) and (c) run granite-3.2-8b's widths at 10 of its 40 layers: the
 # phase is host-bound (a mixed step's wall grows with its launches, about
-# 25 per layer), and at 40 layers it took 262-314 s of the smoke's time
-PAPER_LAYERS = 20
+# 25 per layer); at 40 layers it took 262-314 s of the smoke's time, at
+# 20 112-194 s
+PAPER_LAYERS = 10
 
 
 def bench_legs(smoke: bool):
@@ -3212,13 +3252,14 @@ def plain_ssm_scan(torch):
 
 
 @contextlib.contextmanager
-def first_call(module, name):
-    """While the block runs, ``module.<name>`` keeps copies of its first
-    call's arguments (the yielded list) and passes every call on."""
+def first_call(module, name, n: int = 1):
+    """While the block runs, ``module.<name>`` keeps copies of the
+    arguments of its first ``n`` calls (the yielded list) and passes
+    every call on."""
     real, seen = getattr(module, name), []
 
     def recorded(*args):
-        if not seen:
+        if len(seen) < n:
             seen.append(tuple(a.clone() for a in args))
         return real(*args)
     setattr(module, name, recorded)
@@ -3838,7 +3879,8 @@ def tp_full(torch, rank, arch, num_layers=0, profile=False):
     del params, adapter
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    weights_gb = tree_bytes(eng.runner.params) / 1e9
+    weights_bytes = tree_bytes(eng.runner.params)
+    weights_gb = weights_bytes / 1e9
     reset_counts()
     res, step_ms = run_pipeline(torch, eng, **PIPE)
     counts = dict(zip(SERVING, read_counts()))
@@ -3852,7 +3894,8 @@ def tp_full(torch, rank, arch, num_layers=0, profile=False):
              f"{steps} mixed steps")
     ids = res.base_ids + res.eval_ids
     out = {"arch": arch, "num_layers": cfg.num_layers, "steps": steps,
-           "launches": counts, "weights_gb": weights_gb, "setup_s": setup_s,
+           "launches": counts, "weights_gb": weights_gb,
+           "weights_bytes": weights_bytes, "setup_s": setup_s,
            "step_ms_mean": statistics.mean(step_ms),
            "step_ms_median": statistics.median(step_ms),
            "outputs": [list(map(int, eng.request(i).output_tokens))
@@ -4033,6 +4076,8 @@ def sharded_step(torch, phase3):
         entry = {k: r0[k] for k in r0 if k != "outputs"}
         entry.update(agreement_with_phase3=agree,
                      weights_gb_per_rank=[r["weights_gb"] for r in ranks],
+                     weights_bytes_per_rank=[r["weights_bytes"]
+                                             for r in ranks],
                      launches_per_rank=[r["launches"] for r in ranks],
                      unsharded_weights_gb=p3["weights_gb"],
                      unsharded_step_ms_mean=p3["step_ms_mean"])
@@ -4059,6 +4104,669 @@ def sharded_step(torch, phase3):
           f"{dec.get('htod_per_step')} a step; copies "
           f"{dec.get('copy_share_of_busy')} of busy)", flush=True)
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the sharded full-sequence model, decode step and training
+# (models.model under Runtime.mesh) on ranks sharing the card
+# ---------------------------------------------------------------------------
+FM_TOL = 1e-5
+FM_B, FM_S = 2, 16
+FM_ARCHS = {"granite-3.2-8b": 16, "mamba2-2.7b": 4,   # arch: decode steps
+            "whisper-large-v3": 4}
+FM_MOE, FM_CP = "granite-moe-1b-a400m", "stablelm-12b"
+FM_CAPS = (32.0, 0.05)
+FM_EP = {"moe_impl": "expert_parallel", "capacity_factor": 32.0}
+# 10(b): mamba2-2.7b's depth cut (64 layers) and the train step's shape
+FM_MAMBA_LAYERS = 16
+FM_TRAIN = dict(layers=4, B=4, S=1024)
+
+
+def fm_zoo(torch):
+    """10(a)'s reduced float32 models on the CPU, weights from a seed:
+    (cfg, params, stacked adapters | None, inputs) by arch, granite's
+    and mamba2's one rank-8 adapter (B amplified 30×) on the second half
+    of every row; the MoE layer's input, the context-parallel and train
+    inputs."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.alora import init_adapter_weights, stack_adapters
+    from repro_torch.models.model import init_params
+    zoo = {}
+    for arch in (*FM_ARCHS, FM_MOE, FM_CP):
+        cfg = get_reduced(arch)
+        params = init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+        rng = np.random.RandomState(1)
+        inputs = {"tokens": rng.randint(0, cfg.vocab_size, (FM_B, FM_S))}
+        if cfg.frontend == "audio":
+            inputs["extra_embeds"] = (rng.randn(
+                FM_B, cfg.encoder_seq_len, cfg.d_model) * 0.05).astype(
+                np.float32)
+        ad = None
+        if arch in ("granite-3.2-8b", "mamba2-2.7b"):
+            w = init_adapter_weights(torch.Generator().manual_seed(5), cfg,
+                                     8, device="cpu")
+            ad = stack_adapters(cfg, [{s: {k: v * 30.0 if k[0] == "b" else v
+                                           for k, v in l.items()}
+                                       for s, l in w.items()}], 8)
+            inputs["adapter_idx"] = np.where(
+                np.arange(FM_S) >= FM_S // 2, 1, 0)[None].repeat(
+                FM_B, 0).astype(np.int32)
+        zoo[arch] = (cfg, params, ad, inputs)
+    rng = np.random.RandomState(2)
+    cfg = zoo[FM_MOE][0]
+    zoo["moe_x"] = rng.randn(4, 8, cfg.d_model).astype(np.float32)
+    cfg = zoo[FM_CP][0]
+    zoo["cp"] = (rng.randint(0, cfg.vocab_size, (4, 32)),
+                 rng.randn(4, 32, cfg.d_model).astype(np.float32))
+    zoo["train"] = {}
+    for arch in ("granite-3.2-8b", FM_MOE):
+        cfg = zoo[arch][0]
+        zoo["train"][arch] = {
+            "tokens": rng.randint(0, cfg.vocab_size, (4, FM_S)),
+            "labels": rng.randint(0, cfg.vocab_size, (4, FM_S)),
+            "mask": (rng.rand(4, FM_S) > 0.2).astype(np.float32)}
+    return zoo
+
+
+def fm_cases(zoo, world: str):
+    """10(a)'s cases of a world: ``(name, kind, args, keywords)`` of
+    ``sharded_model.run_cases``, and each case's unsharded twin."""
+    cases = []
+    tags = [("", {})] if world == "2" else [("", {}), ("@1x4", {"mesh": (1, 4)})]
+    for tag, kw in tags:
+        for arch, decode in FM_ARCHS.items():
+            if tag and arch != "granite-3.2-8b":
+                continue
+            cfg, params, ad, inputs = zoo[arch]
+            cases.append((arch + tag, "model", (cfg, params, inputs),
+                          dict(adapters=ad, decode=decode, **kw)))
+    cfg, params, _, _ = zoo[FM_MOE]
+    for cap in FM_CAPS:
+        cases.append((f"moe{cap}", "moe", (cfg, params["layers"][0]["moe"],
+                                          zoo["moe_x"]),
+                      dict(capacity_factor=cap)))
+    cfg, params, _, _ = zoo[FM_CP]
+    cases.append(("cp", "cp", (cfg, params) + zoo["cp"], {}))
+    # granite-moe: expert-parallel at (1, 2); masked dense at (2, 2), where
+    # its aux takes the global batch's statistics like the unsharded one
+    # (expert-parallel aux is the data shards' mean, the reference's pmean)
+    trains = [("granite-3.2-8b", {}), (FM_MOE, FM_EP if world == "2" else {})]
+    for arch, kw in trains:
+        cfg, params, _, _ = zoo[arch]
+        cases.append((f"train/{arch}" + ("/ep" if kw else ""), "train",
+                      (cfg, params, zoo["train"][arch]), dict(rt_kw=kw)))
+    if world == "4":
+        cfg, params, _, _ = zoo["granite-3.2-8b"]
+        cases.append(("train/granite-3.2-8b@1x4", "train",
+                      (cfg, params, zoo["train"]["granite-3.2-8b"]),
+                      dict(rt_kw={}, mesh=(1, 4))))
+    return cases
+
+
+def fm_unsharded(torch, zoo):
+    """10(a)'s oracle: every case unsharded on the card (the MoE layer on
+    each data shard's rows)."""
+    from repro_torch.benchmarks import sharded_model as SM
+    out = {}
+    for name, kind, args, kw in fm_cases(zoo, "2") + fm_cases(zoo, "4"):
+        kw = {k: v for k, v in kw.items() if k != "mesh"}
+        if kind == "moe":
+            x = args[2]
+            for rows in ((0, 4), (0, 2), (2, 4)):
+                out[(name, rows)] = SM.to_numpy(SM.moe_case(
+                    args[0], args[1], x[rows[0]:rows[1]], device="cuda",
+                    **kw))
+            continue
+        if name not in out:
+            out[name] = SM.to_numpy(SM.CASES[kind](*args, device="cuda",
+                                                   **kw))
+    torch.cuda.synchronize()
+    return out
+
+
+def fm_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        fail(f"shape {got.shape} != {want.shape}")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def fm_check(zoo, world, res, want) -> dict:
+    """Hold every rank's 10(a) results to the unsharded card's; returns
+    the worst error of each case and the launches of rank 0."""
+    from repro_torch.common import tree_map, tree_paths
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_loop import (TrainState,
+                                                 gather_train_states)
+    mesh_of = {"2": (1, 2), "4": (2, 2)}
+    out = {}
+    for name, kind, args, kw in fm_cases(zoo, world):
+        data, model = kw.get("mesh", mesh_of[world])
+        label = f"10(a) {name} at ({data}, {model})"
+        ranks = [r["reduced"][name] for r in res]
+        worst = 0.0
+        if kind == "model":
+            w = want[name]
+            cfg, ad = args[0], kw.get("adapters")
+            Ls = cfg.pattern().count("ssm")
+            n = {"alora_qkv": 0 if ad is None else
+                 3 * (cfg.num_layers - Ls) * (1 + kw["decode"]),
+                 # the SSM input projection's delta, a forward and a step
+                 "ragged_grouped_lora": 0 if ad is None else
+                 Ls * (1 + kw["decode"]),
+                 "ssd_chunk_scan": Ls}       # forward_full's dense scan
+            for i, r in enumerate(ranks):
+                got = {k: r["launches"].get(k, 0) for k in n}
+                if got != n:
+                    fail(f"{label}: rank {i} launched {got}, not {n}")
+            for r in ranks:
+                worst = max(worst, fm_rel(r["hidden"], w["hidden"]),
+                            fm_rel(r["logits"], w["logits"]))
+                if not np.array_equal(r["tokens"], w["tokens"]):
+                    fail(f"{label}: greedy tokens {r['tokens'].tolist()} != "
+                         f"the unsharded card's {w['tokens'].tolist()}")
+        elif kind == "moe":
+            auxes = []
+            for r in ranks:
+                w = want[(name, tuple(r["rows"]))]
+                worst = max(worst, fm_rel(r["y"], w["y"]))
+                drop = np.abs(w["y"]).sum(-1) < 1e-12
+                if not np.array_equal(np.abs(r["y"]).sum(-1) < 1e-12, drop):
+                    fail(f"{label}: dropped rows differ")
+                auxes.append(w["aux"])
+            aux = float(np.mean(auxes[::model]))
+            if any(abs(r["aux"] - aux) > 1e-6 for r in ranks):
+                fail(f"{label}: aux {[r['aux'] for r in ranks]} != {aux}")
+        elif kind == "cp":
+            w = want[name]
+            for r in ranks:
+                worst = max(worst, fm_rel(r["hidden"], w["hidden"]))
+                for path, g in tree_paths(r["grads"]):
+                    gw = w["grads"]
+                    for k in path:
+                        gw = gw[k]
+                    if np.abs(gw).max() > 0:
+                        worst = max(worst, fm_rel(g, gw))
+        else:
+            import torch
+            w = want[name]
+            for k in ("loss", "ce", "aux", "grad_norm"):
+                for r in ranks:
+                    e = abs(r["stats"][k] - w["stats"][k]) / max(
+                        abs(w["stats"][k]), 1e-6)
+                    worst = max(worst, e)
+            tt = lambda t: tree_map(torch.from_numpy, t)  # noqa: E731
+            states = [TrainState(tt(r["params"]), AdamWState(
+                torch.tensor(r["step"]), tt(r["mu"]), tt(r["nu"])))
+                for r in ranks]
+            cfg = args[0]
+            got = gather_train_states(states, cfg, {"data": data,
+                                                    "model": model})
+            scale = max(float(np.abs(v).max()) for _, v in
+                        tree_paths(w["params"]))
+            for path, a in tree_paths(got.params):
+                ref = w["params"]
+                for k in path:
+                    ref = ref[k]
+                worst = max(worst, float(np.abs(a.numpy() - ref).max())
+                            / scale)
+            for key in ("mu", "nu"):
+                for path, a in tree_paths(getattr(got.opt, key)):
+                    ref = w[key]
+                    for k in path:
+                        ref = ref[k]
+                    worst = max(worst, fm_rel(a.numpy(), ref))
+            for i, st in enumerate(states):
+                mine = shard_params(got.params, cfg, {"data": data,
+                                                      "model": model},
+                                    {"data": i // model, "model": i % model})
+                for path, a in tree_paths(st.params):
+                    ref = mine
+                    for k in path:
+                        ref = ref[k]
+                    if not torch.equal(a, ref):
+                        fail(f"{label}: rank {i}'s copy of {path} differs")
+        if worst > FM_TOL:
+            fail(f"{label}: {worst:.3e} of max|unsharded| > {FM_TOL}")
+        out[name] = {"worst_rel_err": worst,
+                     "launches_rank0": {k: v for k, v in
+                                        ranks[0]["launches"].items() if v},
+                     "collectives_rank0": ranks[0]["collectives"]}
+        print(f"  {label}: within {worst:.2e} of the unsharded card's "
+              f"(tol {FM_TOL}); launches rank 0 {out[name]['launches_rank0']}",
+              flush=True)
+    return out
+
+
+def fm_vs_plain(torch, calls, kernel, plain, shape_of):
+    """Each call of a kernel's wrapper recorded on this rank's slice
+    (``first_call``) run again through the kernel and through its plain
+    version on the same tensors: its shape, max |err| and that over max
+    |plain| (the worst output)."""
+    out = []
+    for args in calls:
+        got, want = kernel(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max((rel_err(g, w) for g, w in zip(got, want)),
+                  key=lambda e: e[1])
+        out.append({"shape": shape_of(args), "max_abs_err": err[0],
+                    "rel_err": err[1]})
+    torch.cuda.synchronize()
+    return out
+
+
+def fm_b6_shape(args):
+    x, w, a = args[:3]
+    return (f"T={x.shape[0]} {w.shape[0]}->{w.shape[1]} n={a.shape[0]} "
+            f"r={a.shape[-1]}")
+
+
+def fm_full_granite(torch, rank):
+    """10(b) granite-3.2-8b at full width and depth in bf16 on this rank
+    of a model=2 mesh: the weights drawn as phase 8 draws them and cut
+    to the rank's slice layer by layer, four rank-32 adapters (B on the
+    rank's columns), ``forward_full`` on ``GRANITE_FULL``'s 2 × 1,024
+    tokens (row 1 on adapter 1 from token 512), then 4 greedy
+    ``decode_step``\\ s: B6's launches and the wall ms of each, the peak
+    GB; layer 0's Q, K and V calls of the warm-up forward and step on
+    the rank's columns through B6 and ``alora_qkv_ref``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.alora import init_adapter_weights, stack_adapters
+    from repro_torch.distributed.sharding import (shard_adapter_layers,
+                                                  tree_bytes)
+    from repro_torch.kernels.alora_qkv import alora_qkv, alora_qkv_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    g = GRANITE_FULL
+    cfg = get_config("granite-3.2-8b")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = M.init_params(gen, cfg, device="cuda",
+                           shard=tp_slicer(cfg, rank))
+    ads = stack_adapters(cfg, [init_adapter_weights(gen, cfg, g["rank"],
+                                                    device="cuda")
+                               for _ in range(g["adapters"])], g["rank"])
+    ads = shard_adapter_layers(ads, cfg, rank.mesh, rank.coords)
+    rt = M.Runtime(mesh=rank.mesh, batch_axes=("data",))
+    B, S, n = g["B"], g["S"], 4
+    toks = torch.randint(10, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    aidx = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+    aidx[1, g["act"]:] = 1
+    on = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+    out = {"weights_bytes": tree_bytes(params),
+           "adapter_bytes": tree_bytes(ads), "layers": cfg.num_layers}
+    with torch.no_grad():
+        with first_call(L, "alora_qkv", 3) as fwd_calls:   # layer 0's Q/K/V
+            M.forward_full(params, cfg, toks, rt, adapters=ads,
+                           adapter_idx=aidx)
+        alora_qkv.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, _, caches = M.forward_full(params, cfg, toks, rt, adapters=ads,
+                                      adapter_idx=aidx, return_caches=True)
+        torch.cuda.synchronize()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        out["forward_launches_B6"] = alora_qkv.launches
+        tok = M.logits_for(params, cfg, h[:, -1:], rt).argmax(-1)
+        caches = M.prefill_to_decode_caches(cfg, caches, S, S + n + 1, rt)
+        with first_call(L, "alora_qkv", 3) as step_calls:
+            M.decode_step(params, cfg, tok, caches, S, rt, adapters=ads,
+                          adapter_idx=on)
+        alora_qkv.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks_out = []
+        for i in range(n):
+            lg, caches = M.decode_step(params, cfg, tok, caches, S + 1 + i,
+                                       rt, adapters=ads, adapter_idx=on)
+            tok = lg.argmax(-1)
+            toks_out.append(tok[:, 0].tolist())
+        torch.cuda.synchronize()
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        out["decode_launches_B6_per_step"] = alora_qkv.launches / n
+        out["finite"] = bool(torch.isfinite(h).all()) and \
+            bool(torch.isfinite(lg).all())
+    out["tokens"] = toks_out
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["b6_vs_plain"] = fm_vs_plain(torch, fwd_calls + step_calls,
+                                     alora_qkv, alora_qkv_ref, fm_b6_shape)
+    del params, ads, caches, h, fwd_calls, step_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fm_full_mamba2(torch, rank):
+    """10(b) mamba2-2.7b at full width, ``FM_MAMBA_LAYERS`` layers, bf16 on
+    this rank of a model=2 mesh: a no-grad ``forward_full`` on
+    ``MAMBA_FULL``'s 2 × 2,048 tokens (B5 once a layer on the rank's 40
+    heads), then an adapted one (one rank-32 adapter on row 1 from token
+    1,024: B2's one-pair entry once a layer); layer 0's B5 and B2 calls
+    of the warm-up forwards on the rank's heads and columns through the
+    kernel and its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.alora import init_adapter_weights, stack_adapters
+    from repro_torch.distributed.sharding import shard_adapter_layers
+    from repro_torch.kernels.ragged_lora import ragged_grouped_lora
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    m = MAMBA_FULL
+    cfg = get_config("mamba2-2.7b").replace(num_layers=FM_MAMBA_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = M.init_params(gen, cfg, device="cuda",
+                           shard=tp_slicer(cfg, rank))
+    ads = shard_adapter_layers(stack_adapters(cfg, [init_adapter_weights(
+        gen, cfg, 32, device="cuda")], 32), cfg, rank.mesh, rank.coords)
+    rt = M.Runtime(mesh=rank.mesh, batch_axes=("data",))
+    B, S = m["B"], m["S"]
+    toks = torch.randint(10, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    aidx = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+    aidx[1, S // 2:] = 1
+    out = {"layers": cfg.num_layers}
+    Q = min(cfg.ssm.chunk_size, S)
+    with torch.no_grad():
+        with first_call(ssm, "ssd_chunk_scan") as b5_calls:
+            M.forward_full(params, cfg, toks, rt)
+        ssd_chunk_scan.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, _, _ = M.forward_full(params, cfg, toks, rt)
+        torch.cuda.synchronize()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        out["forward_launches_B5"] = ssd_chunk_scan.launches
+        with first_call(L, "ragged_grouped_lora") as b2_calls:
+            M.forward_full(params, cfg, toks, rt, adapters=ads,
+                           adapter_idx=aidx)
+        ragged_grouped_lora.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ha, _, _ = M.forward_full(params, cfg, toks, rt, adapters=ads,
+                                  adapter_idx=aidx)
+        torch.cuda.synchronize()
+        out["adapted_forward_ms"] = (time.perf_counter() - t0) * 1e3
+        out["adapted_launches_B2"] = ragged_grouped_lora.launches
+        out["finite"] = bool(torch.isfinite(h).all()) and \
+            bool(torch.isfinite(ha).all())
+        # the adapter moves only row 1's adapted positions
+        out["row0_unchanged"] = bool(torch.equal(h[0], ha[0]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["b5_vs_plain"] = fm_vs_plain(
+        torch, b5_calls, ssd_chunk_scan,
+        lambda *a: ssm.chunked_scan(*a, Q),
+        lambda a: f"{tuple(a[0].shape)} N={a[1].shape[-1]}")
+    out["b2_vs_plain"] = fm_vs_plain(
+        torch, b2_calls, ragged_grouped_lora,
+        lambda x, a, b, idx, act: lora_plain(x, [(a, b)], idx, act),
+        lambda a: (f"T={a[0].shape[0]} d={a[0].shape[1]} out="
+                   f"{a[2].shape[-1]} n={a[1].shape[0]} r={a[1].shape[-1]}"))
+    del params, ads, h, ha, b5_calls, b2_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fm_full_train(torch, rank):
+    """10(b) one TP + ZeRO-1 train step (after a first one) at granite's
+    widths × ``FM_TRAIN["layers"]`` layers in bf16 on this rank of the
+    (2, 2) mesh, B 4 × S 1,024 from ``SyntheticDataset``, remat on (the
+    train_4k runtime): the wall ms of the step, its loss and grad norm
+    (equal on every rank), the peak GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      SyntheticDataset, make_train_step)
+    from repro_torch.training.train_loop import init_sharded_train_state
+    t = FM_TRAIN
+    cfg = get_config("granite-3.2-8b").replace(num_layers=t["layers"])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = M.init_params(gen, cfg, device="cuda",
+                           shard=tp_slicer(cfg, rank))
+    rt = M.Runtime(mesh=rank.mesh, batch_axes=("data",), remat=True)
+    state = init_sharded_train_state(params, cfg, rt)
+    batch = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=t["S"],
+                                        global_batch=t["B"])).batch(0)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=20,
+                                            total_steps=10), rt)
+    state, stats = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"step_ms": (time.perf_counter() - t0) * 1e3,
+           **{k: float(v) for k, v in stats.items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fm_rank(rank, cases, full):
+    """One rank of phase 10: the reduced cases, then (``full``) 10(b)'s
+    runs of this world."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.benchmarks import sharded_model as SM
+    out = {"reduced": SM.run_cases(rank, cases)}
+    if full == "model2":
+        torch.cuda.reset_peak_memory_stats()
+        out["granite"] = fm_full_granite(torch, rank)
+        torch.cuda.reset_peak_memory_stats()
+        out["mamba2"] = fm_full_mamba2(torch, rank)
+    elif full == "train":
+        torch.cuda.reset_peak_memory_stats()
+        out["train"] = fm_full_train(torch, rank)
+    return out
+
+
+def fm_dryrun_records():
+    """10(c)'s records: every assigned (arch × shape) on both production
+    meshes (shape arithmetic, no card), and their seconds."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = [dryrun.run_one(a, s, m, verbose=False)
+            for a in dryrun.ASSIGNED_ARCHS for s in dryrun.INPUT_SHAPES
+            for m in dryrun.MESHES]
+    return recs, time.perf_counter() - t0
+
+
+def fm_dryrun(tp_summary, measured, recs, seconds):
+    """10(c): the dry run's records all sized, each rank's arguments
+    against 80 GB, then granite-3.2-8b's per-rank param bytes at model=2
+    against phase 9's measured bytes on each rank and 10(b)'s
+    (``measured``)."""
+    from repro_torch.launch import dryrun
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error"))
+           for r in recs if not r["ok"]]
+    if bad:
+        fail(f"10(c) dry run failed: {bad}")
+    worst = {}
+    for r in recs:
+        key = f"{r['shape']}/{r['mesh']}"
+        gb = r["memory"]["argument_size_in_bytes"] / 1e9
+        if gb >= worst.get(key, (0, ""))[0]:
+            worst[key] = (gb, r["arch"])
+    g = dryrun.run_one("granite-3.2-8b", "prefill_32k", "1x2", verbose=False,
+                       mesh={"data": 1, "model": 2})
+    want = tp_summary["granite"]["weights_bytes_per_rank"]
+    got = g["memory"]["params_bytes"]
+    if any(got != w for w in want + measured):
+        fail(f"10(c) dry-run param bytes of granite-3.2-8b at model=2 {got} "
+             f"!= phase 9's measured {want} or 10(b)'s {measured} a rank")
+    print(f"  10(c) dry run: {len(recs)} records (both meshes), "
+          f"{seconds:.1f} s; granite-3.2-8b at model=2: "
+          f"{got} param bytes a rank = phase 9's measured {want} = 10(b)'s "
+          f"{measured}", flush=True)
+    for key, (gb, arch) in sorted(worst.items()):
+        print(f"  10(c) {key}: largest arguments a rank {gb:.2f} GB "
+              f"({arch}) of 80 GB (activations not estimated)", flush=True)
+    fits = all(r["fits_without_activations"] for r in recs)
+    return {"records": len(recs), "seconds": seconds,
+            "all_fit_without_activations": fits,
+            "largest_args_gb": {k: list(v) for k, v in worst.items()},
+            "granite_model2_param_bytes": got,
+            "phase9_param_bytes": want, "phase10b_param_bytes": measured,
+            "records_16x16": {f"{r['arch']}/{r['shape']}": {
+                "args_gb": r["memory"]["argument_size_in_bytes"] / 1e9,
+                "out_gb": r["memory"]["output_size_in_bytes"] / 1e9,
+                "dominant": r["roofline"]["dominant"],
+                "compute_s": r["roofline"]["compute_s"],
+                "memory_s": r["roofline"]["memory_s"],
+                "collective_s": r["roofline"]["collective_s"]}
+                for r in recs if r["mesh"] == "16x16"}}
+
+
+def fm_plain_check(label, calls, tol, shapes) -> float:
+    """Fail unless the recorded calls (``fm_vs_plain``) ran at ``shapes``
+    and each is within ``tol`` of max |plain|; the worst error."""
+    got = [c["shape"] for c in calls]
+    if got != shapes:
+        fail(f"{label}: calls at {got}, not {shapes}")
+    worst = max(c["rel_err"] for c in calls)
+    if worst > tol:
+        fail(f"{label} vs its plain version: {worst} of max|plain| > {tol}")
+    return worst
+
+
+def sharded_model_path(torch, tp_summary):
+    """Phase 10 (see the module docstring): the (2, 2) world (10(a) and
+    the train step of 10(b)) runs in the background while the parent
+    computes 10(a)'s unsharded card runs; then the (1, 2) world (10(a)
+    and 10(b)'s granite and mamba2) while the parent sizes 10(c)'s dry
+    run (host arithmetic, no card)."""
+    import threading
+
+    from repro_torch.distributed.spawn import launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zoo = fm_zoo(torch)
+    four = {}
+
+    def run_four():
+        try:
+            four["res"] = launch(fm_rank, fm_cases(zoo, "4"), "train",
+                                 data=2, model=2, device="cuda", timeout=400)
+        except Exception as e:      # re-raised below
+            four["res"] = e
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run_four)
+    th.start()
+    want = fm_unsharded(torch, zoo)
+    gc.collect()
+    torch.cuda.empty_cache()
+    th.join()
+    if isinstance(four["res"], Exception):
+        raise four["res"]
+    t4 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2 = {}
+
+    def run_two():
+        try:
+            res2["res"] = launch(fm_rank, fm_cases(zoo, "2"), "model2",
+                                 data=1, model=2, device="cuda", timeout=400)
+        except Exception as e:      # re-raised below
+            res2["res"] = e
+    th = threading.Thread(target=run_two)
+    th.start()
+    recs, dry_s = fm_dryrun_records()
+    th.join()
+    if isinstance(res2["res"], Exception):
+        raise res2["res"]
+    two = res2["res"]
+    t2 = time.perf_counter() - t0
+    out = {"world4_s": t4, "world2_s": t2,
+           "reduced": {"1x2": fm_check(zoo, "2", two, want),
+                       "2x2": fm_check(zoo, "4", four["res"], want)}}
+    for key in ("granite", "mamba2"):
+        ranks = [r[key] for r in two]
+        if not all(r["finite"] for r in ranks):
+            fail(f"10(b) {key}: non-finite outputs")
+        out[key] = {**{k: v for k, v in ranks[0].items() if k != "tokens"},
+                    "per_rank": [{k: r[k] for k in r if k.endswith("_ms")
+                                  or k.startswith("peak")} for r in ranks]}
+    # layer 0's kernel calls on a rank's slice at model=2: B6 on Q (4096
+    # -> 16 of 32 heads) and K/V (4 of 8 heads) at forward_full's T and
+    # decode_step's; B5 on 40 of mamba2's 80 heads; B2 on the rank's
+    # in-projection columns (z and x of its heads, B and C whole, its dt)
+    g, m = GRANITE_FULL, MAMBA_FULL
+    b6_shapes = [f"T={T} 4096->{w} n={g['adapters'] + 1} r={g['rank']}"
+                 for T in (g["B"] * g["S"], g["B"]) for w in (2048, 512, 512)]
+    b5_shapes = [f"({m['B']}, {m['S']}, 40, 64) N=128"]
+    b2_shapes = [f"T={m['B'] * m['S']} d=2560 out=5416 n=2 r=32"]
+    plain = {}
+    for i, x in enumerate(two):
+        for key, kern, tol, shapes in (
+                ("granite", "b6", TOL["bfloat16"], b6_shapes),
+                ("mamba2", "b5", TOL["float32"], b5_shapes),
+                ("mamba2", "b2", TOL["bfloat16"], b2_shapes)):
+            e = fm_plain_check(f"10(b) {key} rank {i}: {kern.upper()}",
+                               x[key][f"{kern}_vs_plain"], tol, shapes)
+            plain[kern] = max(plain.get(kern, 0.0), e)
+    out["vs_plain"] = plain
+    gr = out["granite"]
+    for r in (x["granite"] for x in two):
+        n = 3 * r["layers"]             # Q, K and V of every layer
+        if (r["forward_launches_B6"], r["decode_launches_B6_per_step"]) \
+                != (n, n):
+            fail(f"10(b) granite: B6 {r['forward_launches_B6']} a forward, "
+                 f"{r['decode_launches_B6_per_step']} a decode step, not "
+                 f"{n} and {n} on each rank")
+        if r["tokens"] != two[0]["granite"]["tokens"]:
+            fail("10(b) granite: the ranks decoded different tokens")
+    for r in (x["mamba2"] for x in two):
+        if (r["forward_launches_B5"], r["adapted_launches_B2"]) != \
+                (r["layers"], r["layers"]):
+            fail(f"10(b) mamba2: B5 {r['forward_launches_B5']}, B2 "
+                 f"{r['adapted_launches_B2']} on a rank, not "
+                 f"{r['layers']} each")
+        if not r["row0_unchanged"]:
+            fail("10(b) mamba2: the adapter changed row 0 (base weights)")
+    trains = [r["train"] for r in four["res"]]
+    for k in ("loss", "grad_norm"):
+        if len({r[k] for r in trains}) != 1 or not np.isfinite(trains[0][k]):
+            fail(f"10(b) train: {k} {[r[k] for r in trains]} differs across "
+                 "ranks or is not finite")
+    out["train"] = {**trains[0], "step_ms_per_rank":
+                    [r["step_ms"] for r in trains],
+                    "peak_gb_per_rank": [r["peak_gb"] for r in trains]}
+    mb = out["mamba2"]
+    tr = out["train"]
+    print(f"  10(b) granite-3.2-8b full width, model=2, 4 rank-32 adapters: "
+          f"forward_full 2 x 1024 {gr['forward_ms']:.1f} ms (B6 "
+          f"{gr['forward_launches_B6']} a rank), decode_step "
+          f"{gr['decode_ms']:.1f} ms (B6 {gr['decode_launches_B6_per_step']:.0f} "
+          f"a rank), weights {gr['weights_bytes'] / 1e9:.2f} GB and peak "
+          f"{gr['peak_gb']:.2f} GB a rank", flush=True)
+    print(f"  10(b) mamba2-2.7b {FM_MAMBA_LAYERS} layers, model=2: "
+          f"forward_full 2 x 2048 {mb['forward_ms']:.1f} ms (B5 "
+          f"{mb['forward_launches_B5']} a rank), adapted "
+          f"{mb['adapted_forward_ms']:.1f} ms (B2 {mb['adapted_launches_B2']} "
+          f"a rank), peak {mb['peak_gb']:.2f} GB a rank", flush=True)
+    print(f"  10(b) TP + ZeRO-1 train step, granite widths x "
+          f"{FM_TRAIN['layers']} layers, B {FM_TRAIN['B']} x S "
+          f"{FM_TRAIN['S']} at (2, 2): {tr['step_ms']:.1f} ms (ranks "
+          + ", ".join(f"{x:.1f}" for x in tr["step_ms_per_rank"])
+          + f"), loss {tr['loss']:.4f}, grad norm {tr['grad_norm']:.4f}, "
+          f"peak {max(tr['peak_gb_per_rank']):.2f} GB a rank", flush=True)
+    print(f"  10(b) layer 0 on each rank's slice, kernel vs plain (of max "
+          f"|plain|): B6 {plain['b6']:.3e} at {b6_shapes[0]}, "
+          f"{b6_shapes[1]} and T={g['B']} (tol {TOL['bfloat16']}); B5 "
+          f"{plain['b5']:.3e} at {b5_shapes[0]} (tol {TOL['float32']}); B2 "
+          f"{plain['b2']:.3e} at {b2_shapes[0]} (tol {TOL['bfloat16']})",
+          flush=True)
+    print(f"  world of 4 ranks {t4:.1f} s (with the unsharded runs), world "
+          f"of 2 ranks {t2:.1f} s", flush=True)
+    out["dryrun"] = fm_dryrun(tp_summary, [x["granite"]["weights_bytes"]
+                                           for x in two], recs, dry_s)
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, steps, check, **extra):
@@ -4203,17 +4911,16 @@ def main() -> None:
     phase("[3] main path, full width")
     mp = {}
     for arch in ("granite-3.2-8b", "mamba2-2.7b", "zamba2-2.7b",
-                 *DENSE_ARCHS):
+                 *DENSE_ARCHS, *MOE_VLM_ARCHS, ENCDEC_ARCH):
         print(f" [3] {arch}", flush=True)
+        t0 = time.perf_counter()
         mp[arch] = main_path(torch, arch,
                              profile=arch != "zamba2-2.7b",
                              long=arch == "starcoder2-3b",
+                             num_layers=PHASE3_LAYERS.get(arch, 0),
                              sequential=arch in SEQ_ARCHS)
-    for arch in MOE_VLM_ARCHS + (ENCDEC_ARCH,):
-        print(f" [3] {arch}", flush=True)
-        mp[arch] = main_path(torch, arch, profile=True, num_layers=(
-            PHIMOE_LAYERS if arch == "phi3.5-moe-42b-a6.6b" else 0),
-            sequential=arch in SEQ_ARCHS)
+        mp[arch]["seconds"] = time.perf_counter() - t0
+        print(f"  {arch}: {mp[arch]['seconds']:.1f} s", flush=True)
 
     phase("[4] parity, reduced fp32, card vs CPU")
     par = {arch: parity(torch, arch)
@@ -4270,6 +4977,9 @@ def main() -> None:
                   "eval_cache_hits", "weights_gb", "step_ms_mean")}}
           for a in TP_ARCHS[:2]}
     tp = sharded_step(torch, p3)
+
+    phase("[10] the sharded full-sequence model and training")
+    fm = sharded_model_path(torch, tp)
 
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
@@ -4474,6 +5184,25 @@ def main() -> None:
                 launches_forward_full=ad["launches_B2"],
                 forward_full={k: v for k, v in ad.items()
                               if k != "launches_B2"})
+        sharded = {
+            "alora_qkv": {
+                "granite_forward_full_model2": fm["granite"][
+                    "forward_launches_B6"],
+                "granite_decode_step_model2": fm["granite"][
+                    "decode_launches_B6_per_step"]},
+            "ssd_chunk_scan": {"mamba2_forward_full_model2": fm["mamba2"][
+                "forward_launches_B5"]},
+            "ragged_grouped_lora": {
+                "mamba2_adapted_forward_full_model2": fm["mamba2"][
+                    "adapted_launches_B2"]}}.get(entry["name"])
+        if sharded is not None:
+            # phase 10: each rank's launches in the sharded full model,
+            # and layer 0's calls on a rank's slice against the plain
+            # version (worst of max |err| / max |plain|)
+            entry["launches_sharded_model_per_rank"] = sharded
+            entry["sharded_model_layer0_rel_err"] = fm["vs_plain"][{
+                "alora_qkv": "b6", "ssd_chunk_scan": "b5",
+                "ragged_grouped_lora": "b2"}[entry["name"]]]
         if entry["name"] == "alora_qkv":
             gf = full["granite"]
             entry.update(
@@ -4491,7 +5220,7 @@ def main() -> None:
                       "sequential_kernels": seq_kernels,
                       "bench": bres, "serving_tier": tier,
                       "paper_benches": benches, "full_model": full,
-                      "sharded_step": tp,
+                      "sharded_step": tp, "sharded_model": fm,
                       "bench_seconds": bsec, "card": card,
                       "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}), flush=True)

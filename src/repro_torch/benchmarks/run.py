@@ -1,7 +1,8 @@
 """Benchmark harness of the port — one section per paper table/figure,
 the reference's ``benchmarks/run.py`` without ``fig6`` (the prompt-length
-sweep: ROADMAP A16a) and ``roofline`` (ROADMAP A14b); ``mixed_batch_tp``
-is ``bench_mixed_batch --mesh model=2``.
+sweep: ROADMAP A16a); ``mixed_batch_tp`` is ``bench_mixed_batch --mesh
+model=2``; ``roofline`` prints the dry run's table
+(``repro_torch.launch.dryrun --all`` writes it).
 
 Prints ``name,us_per_call,derived`` CSV rows, then each section's wall
 time.
@@ -26,6 +27,7 @@ def sections() -> Dict[str, Callable]:
                                         bench_generation_length,
                                         bench_mixed_batch,
                                         bench_multi_adapter)
+    from repro_torch.benchmarks import roofline
     from repro_torch.kernels import bench as bench_kernels
     return {
         "mixed_batch": bench_mixed_batch.run,  # unified step vs sequential
@@ -39,6 +41,7 @@ def sections() -> Dict[str, Callable]:
         "fig15": bench_batch_size.run,         # batch-size effect
         "kernels": lambda device: bench_kernels.run(
             str(device), reduced=str(device) == "cpu"),
+        "roofline": roofline.run,              # dry-run roofline table
     }
 
 

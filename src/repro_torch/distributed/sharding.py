@@ -43,6 +43,7 @@ slices adapter B matrices (and slot stacks) on their output columns.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from dataclasses import dataclass
@@ -475,11 +476,13 @@ class RankLayout:
     ssm: bool
     vocab: bool
 
-    # -- the index plan of each leaf ------------------------------------
+    # -- the index plan of each leaf (built once a layout) --------------
+    @functools.cached_property
     def _qkv(self):
         hd = self.cfg.head_dim
         return _span(self.q_heads, hd), _span(self.kv_heads, hd)
 
+    @functools.cached_property
     def _ssm_index(self):
         """(x channels of the local heads, conv channels, local heads,
         the fused [z | xBC | dt] columns) of the local SSM heads."""
@@ -510,7 +513,7 @@ class RankLayout:
                 if self.moe else None
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         if self.attn and name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
-            q, kv = self._qkv()
+            q, kv = self._qkv
             if name in ("wq", "bq"):
                 return (1 if name == "wq" else -1), q, H * hd
             if name == "wo":
@@ -522,7 +525,7 @@ class RankLayout:
             return 0, list(self.ff), cfg.d_ff
         if self.ssm and name in _SSM_LEAVES:
             d_inner, nh, ch = ssm_dims(cfg)
-            x, xbc, heads, fused = self._ssm_index()
+            x, xbc, heads, fused = self._ssm_index
             dim, idx, full = {
                 "in_z": (1, x, d_inner), "in_xbc": (1, xbc, ch),
                 "in_dt": (1, heads, nh), "conv_w": (1, xbc, ch),
@@ -689,3 +692,48 @@ def gather_params(shards: Sequence[Tree], cfg: ModelConfig,
 def tree_bytes(tree: Tree) -> int:
     return sum(math.prod(t.shape) * t.element_size()
                for _, t in _paths(tree))
+
+
+def zero1_local_dims(cfg: ModelConfig, specs: Tree, mesh: MeshLike,
+                     layout: Optional[RankLayout] = None,
+                     data_axis: str = "data") -> Dict[Tuple, Optional[int]]:
+    """ZeRO-1 on the port's per-rank tensors: for each parameter path,
+    the dim of the rank's slice (``layout``'s; None: the whole leaf) that
+    its moments split over ``data`` — the dim :func:`zero1_specs` gives
+    the full leaf (``specs``: its shapes, ``models.model.param_specs``),
+    kept where the rank's length of it divides the data axis, else None
+    (moments whole on every data rank)."""
+    sizes = axis_sizes(mesh)
+    ds = int(sizes.get(data_axis, 1))
+    zspecs = zero1_specs(param_specs_tree(cfg, specs, mesh=sizes), specs,
+                         {**sizes, data_axis: ds}, data_axis)
+    out: Dict[Tuple, Optional[int]] = {}
+    for (path, t), (_, zs) in zip(_paths(specs), _paths(zspecs)):
+        shape = tuple(t.shape) if layout is None \
+            else layout.local_shape(path, tuple(t.shape))
+        dim = next((i for i, ax in enumerate(zs) if ax == data_axis), None)
+        out[path] = dim if ds > 1 and dim is not None \
+            and shape[dim] % ds == 0 and shape[dim] >= ds else None
+    return out
+
+
+def fsdp_local_shape(shape: Tuple[int, ...], spec: P, mesh: MeshLike
+                     ) -> Tuple[int, ...]:
+    """One rank's shape of a leaf under ``spec``."""
+    sizes = axis_sizes(mesh)
+    return tuple(d // _shards_of(ax, sizes) if ax is not None else d
+                 for d, ax in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def shard_fsdp_params(params: Tree, cfg: ModelConfig, mesh: MeshLike,
+                      coords: Mapping[str, int], device=None) -> Tree:
+    """The rank at ``coords``'s FSDP shards of the full parameters
+    (:func:`fsdp_param_specs_tree`: a matrix's first dim over ``data``,
+    replicated over ``model``): the weights of a context-parallel
+    step."""
+    specs = fsdp_param_specs_tree(cfg, params, mesh)
+    out = []
+    for (path, t), (_, sp) in zip(_paths(params), _paths(specs)):
+        s = shard_tensor(t, sp, mesh, coords)
+        out.append(s if device is None else s.to(device))
+    return _rebuild(params, out)

@@ -6,9 +6,11 @@ the training side.
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3.2-8b \\
       --steps 200 --batch 8 --seq 128
 
-It runs on the card; ``--device cpu`` runs on the CPU.  The reference's
-``--dryrun`` (lowering the sharded step for a TPU mesh) is not ported
-(ROADMAP A14b).  ``main`` returns each step's stats as floats.
+It runs on the card; ``--device cpu`` runs on the CPU.  ``--dryrun``
+prints the dry run's record of the FULL configuration's train_4k step
+on the production 16×16 mesh (``launch.dryrun``: the rank's memory,
+collectives and roofline, shape arithmetic only) and returns it.
+``main`` returns each step's stats as floats.
 """
 from __future__ import annotations
 
@@ -54,7 +56,17 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="print the full configuration's train_4k record "
+                         "on the 16x16 mesh instead of training")
     args = ap.parse_args(argv)
+    if args.dryrun:
+        import json
+
+        from repro_torch.launch.dryrun import run_one
+        rec = run_one(args.arch, "train_4k", "16x16")
+        print(json.dumps(rec))
+        return rec
 
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch)

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.alora_qkv import alora_qkv
-from repro_torch.kernels.ragged_lora import (ragged_grouped_lora,
+from repro_torch.kernels.ragged_lora import (ALIGN, ragged_grouped_lora,
                                              ragged_grouped_lora_qkv)
 
 Params = Dict[str, Any]
@@ -117,13 +117,18 @@ def lora_delta_dispatch(x: torch.Tensor, a_stack: torch.Tensor,
     shape: the hand-written kernel on a CUDA tensor, its plain version on
     the CPU.  With every slot of the stack active it is the dense
     :func:`lora_delta` (the plain version bitwise; the kernel within
-    rounding: it rounds ``x @ A`` once)."""
-    lead = x.shape[:-1]
+    rounding: it rounds ``x @ A`` once).  A width the kernel does not
+    take (a rank's slice of an SSM input projection: its heads' dt
+    columns) runs on B padded with zero columns to whole ``ALIGN``s, the
+    padding's outputs dropped."""
+    lead, out = x.shape[:-1], b_stack.shape[-1]
+    if out % ALIGN:
+        b_stack = F.pad(b_stack, (0, -out % ALIGN))
     d = ragged_grouped_lora(x.reshape(-1, x.shape[-1]).contiguous(),
                             a_stack, b_stack,
                             adapter_idx.reshape(-1).contiguous(),
-                            active_slots)
-    return d.reshape(lead + (d.shape[-1],))
+                            active_slots)[:, :out]
+    return d.reshape(lead + (out,))
 
 
 def qkv_project(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -35,6 +35,14 @@ Whole-model passes besides the serving runner's per-layer steps:
   dict per layer in network order (the reference stacks them by
   segment), and ``decode_step`` updates them in place.
 
+Under ``Runtime.mesh`` both run sharded on one rank of a ``(data,
+model)`` mesh: tensor-parallel over ``model`` on ``RankLayout``'s slice
+of every weight, adapter and cache (``distributed.parallel``'s
+collectives, which carry gradients for training), the batch rows over
+``data``, the MoE layers expert-parallel under ``moe_impl=
+"expert_parallel"``, and under ``context_parallel`` the sequence over
+``model`` with FSDP weights gathered over ``data`` per layer.
+
 aLoRA threads through both as ``(adapters, adapter_idx)``: a
 segment-stacked adapter tree with a slot axis and each token's slot (0:
 base weights).  Each adapted Q/K/V projection is one fused aLoRA call
@@ -45,13 +53,14 @@ backward, so a card call that needs a gradient through them raises.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common import resolve_device
+from repro_torch.common import resolve_device, tree_paths
 from repro_torch.configs.base import ATTN, SSM, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (cross_attention, decode_attention,
@@ -59,48 +68,50 @@ from repro_torch.models.attention import (cross_attention, decode_attention,
                                           flash_attention_remat, quantize_kv,
                                           write_kv_cache)
 from repro_torch.models.moe import init_moe, moe_apply
-from repro_torch.models.ssm import (init_ssm, init_ssm_state,
-                                    ssd_decode_step, ssd_forward)
+from repro_torch.models.ssm import (init_ssm, ssd_decode_step, ssd_forward,
+                                    ssm_dims)
 
 Params = Dict[str, Any]
 
 
-_A14_FIELDS = ("moe_impl", "capacity_factor", "mesh", "batch_axes",
-               "model_axis", "window_override", "shard_activations",
-               "sequence_parallel", "context_parallel")
-
-
 @dataclass(frozen=True)
 class Runtime:
-    """The reference's ``Runtime`` knobs for one device.  The fields of
-    ``_A14_FIELDS`` (expert parallelism, meshes, sharding, context
-    parallelism) exist so that a caller setting them fails loudly: they
-    are not ported yet (ROADMAP A14b; the serving engine's sharded mixed
-    step is ``EngineConfig.mesh``).  The reference's XLA-only
-    ``unroll_layers`` and ``skip_masked_blocks`` are left out."""
-    q_block: int = 512                  # flash_attention_remat's tiles
-    kv_block: int = 1024
-    remat: bool = False                 # recompute each layer in backward
-    flash_remat: bool = False           # flash_attention_remat
-    kv_cache_quant: bool = False        # int8 decode caches
-    # not ported (A14b): any value but the default raises
-    moe_impl: str = "masked_dense"      # the other, expert_parallel
-    capacity_factor: float = 1.25       # expert_parallel's
+    """The reference's ``Runtime`` knobs.  With ``mesh`` (a ``DeviceMesh``
+    of ``launch.mesh.make_host_mesh``, or an ``{axis: size}`` mapping for
+    the dry run's shape arithmetic) the full-sequence model, the decode
+    step and training run sharded: tensor-parallel over ``model``, the
+    batch rows over ``data``, the MoE layers expert-parallel under
+    ``moe_impl="expert_parallel"`` and, under ``context_parallel``, the
+    sequence over ``model`` with the weights FSDP over ``data`` (dense
+    decoder-only models).  ``sequence_parallel`` is accepted and read by
+    nothing, as in the reference.  ``shard_activations`` is accepted and
+    changes nothing: the reference's flag adds sharding hints to XLA
+    (``_constrain``), which move no value, and under a mesh the port's
+    activations always live in the rank's layout (``RankLayout``: its
+    rows over ``data``, its heads and columns over ``model``).  The
+    reference's XLA-only ``unroll_layers`` and ``skip_masked_blocks`` are
+    left out."""
+    moe_impl: str = "masked_dense"      # masked_dense | expert_parallel
     mesh: Any = None
     batch_axes: Tuple[str, ...] = ()
     model_axis: str = "model"
-    window_override: int = 0
+    q_block: int = 512                  # flash_attention_remat's tiles
+    kv_block: int = 1024
+    capacity_factor: float = 1.25       # expert_parallel's
+    remat: bool = False                 # recompute each layer in backward
+    window_override: int = 0            # force a sliding window (long_500k)
     shard_activations: bool = False
     sequence_parallel: bool = False
+    flash_remat: bool = False           # flash_attention_remat
+    kv_cache_quant: bool = False        # int8 decode caches
     context_parallel: bool = False
 
     def __post_init__(self):
-        for f in fields(self):
-            if f.name in _A14_FIELDS and getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"Runtime.{f.name}: expert parallelism, meshes, "
-                    "sharding and context parallelism are not ported yet "
-                    "(ROADMAP A14b)")
+        if self.moe_impl not in ("masked_dense", "expert_parallel"):
+            raise ValueError(f"unknown moe impl {self.moe_impl!r}")
+        if self.mesh is not None and self.model_axis != "model":
+            raise ValueError("the port's meshes name their model axis "
+                             f"'model', not {self.model_axis!r}")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -117,10 +128,12 @@ def check_supported(cfg: ModelConfig) -> None:
                          "decoder layers, encoder layers and frames")
 
 
-def effective_window(cfg: ModelConfig) -> int:
-    """The attention window (0: none); the reference's
-    ``Runtime.window_override`` is not ported (A14b)."""
-    return cfg.sliding_window
+def effective_window(cfg: ModelConfig, rt: Optional[Runtime] = None) -> int:
+    """The attention window (0: none): the configuration's, else
+    ``rt.window_override``."""
+    if cfg.sliding_window or rt is None:
+        return cfg.sliding_window
+    return rt.window_override
 
 
 def period_segments(cfg: ModelConfig) -> Tuple[int, List[Tuple[str, int]]]:
@@ -145,6 +158,8 @@ def period_segments(cfg: ModelConfig) -> Tuple[int, List[Tuple[str, int]]]:
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device
             ) -> torch.Tensor:
+    if device.type == "meta":                           # param_specs
+        return torch.empty(shape, dtype=dtype, device=device)
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device) * std).to(dtype)
 
@@ -166,7 +181,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     one full layer; the draws, and so the values, are the unsharded
     ones."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     dtype = L.dtype_of(cfg)
     d, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     std, out_std = 0.02, 0.02 / math.sqrt(2 * cfg.num_layers)
@@ -215,11 +231,79 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     return params
 
 
+_SPECS: Dict[ModelConfig, Params] = {}
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter tree as meta tensors (shapes and dtypes, no storage,
+    no random draws): the reference's ``param_specs`` for the dry run and
+    the sharded steps' layout checks.  Cached per configuration."""
+    if cfg not in _SPECS:
+        _SPECS[cfg] = init_params(torch.Generator(), cfg, device="meta")
+    return _SPECS[cfg]
+
+
 def iter_layers(params: Params, cfg: ModelConfig
                 ) -> Iterator[Tuple[str, Params]]:
     """Yield (kind, per-layer params) in network order."""
     for kind, lp in zip(cfg.pattern(), params["layers"]):
         yield kind, lp
+
+
+# ---------------------------------------------------------------------------
+# a rank's share of a step under ``Runtime.mesh``
+# ---------------------------------------------------------------------------
+def _tp(cfg: ModelConfig, rt: Optional[Runtime]):
+    """The rank's ``TensorParallel`` of a tensor-parallel step (None:
+    unsharded, or context-parallel)."""
+    if rt is None or rt.mesh is None or rt.context_parallel:
+        return None
+    from repro_torch.distributed.parallel import tensor_parallel
+    return tensor_parallel(cfg, rt.mesh)
+
+
+def _cp(cfg: ModelConfig, rt: Optional[Runtime]):
+    """The rank's ``ContextParallel`` (None: not context-parallel)."""
+    if rt is None or rt.mesh is None or not rt.context_parallel:
+        return None
+    from repro_torch.distributed.parallel import context_parallel
+    return context_parallel(cfg, rt.mesh, param_specs(cfg))
+
+
+def check_local(tree, layout, what: str) -> None:
+    """Raise unless every leaf of ``tree`` is ``layout``'s slice of it
+    (full parameters handed to a sharded step fail here)."""
+    for path, t in tree_paths(tree):
+        pl = layout.plan(path, tuple(t.shape))
+        if pl is not None and t.shape[pl[0]] != len(pl[1]):
+            raise ValueError(
+                f"{what} {'/'.join(map(str, path))}: shape "
+                f"{tuple(t.shape)} is not model rank {layout.mr}'s slice "
+                f"(dim {pl[0]}: {len(pl[1])} of {pl[2]}); under "
+                "Runtime.mesh pass the rank's slice "
+                "(distributed.sharding.shard_params / shard_adapter_layers)")
+
+
+def local_layout(cfg: ModelConfig, rt: Optional[Runtime], batch: int):
+    """(the rank's ``RankLayout`` or None, its rows of a ``batch``-row
+    batch) under ``rt.mesh``, a live mesh or an ``{axis: size}``
+    mapping (whose rank is model rank 0)."""
+    if rt is None or rt.mesh is None or rt.context_parallel:
+        return None, batch
+    from repro_torch.distributed.parallel import tensor_parallel
+    from repro_torch.distributed.sharding import rank_layout
+    if isinstance(rt.mesh, Mapping):
+        sizes = rt.mesh
+        lay = rank_layout(cfg, int(sizes.get("model", 1)), 0)
+        ds = math.prod(int(v) for k, v in sizes.items() if k != "model")
+    else:
+        tp = tensor_parallel(cfg, rt.mesh)
+        lay, ds = tp.layout, tp.ds
+    return lay, (batch // ds if batch % ds == 0 else batch)
+
+
+def _enter(tp, x: torch.Tensor, part: str) -> torch.Tensor:
+    return x if tp is None else tp.enter(x, part)
 
 
 def _reduced(y: torch.Tensor, tp, part: str) -> torch.Tensor:
@@ -228,27 +312,41 @@ def _reduced(y: torch.Tensor, tp, part: str) -> torch.Tensor:
     return y if tp is None else tp.reduce(y, part)
 
 
+def _embed(params: Params, tokens: torch.Tensor, tp=None, cp=None
+           ) -> torch.Tensor:
+    if tp is None and cp is None:
+        return L.embed(params["embed"], tokens)
+    tok = params["embed"]["tok"]
+    if cp is not None:
+        return cp.param(("embed", "tok"), tok)[tokens]
+    return tp.embed(tok, tokens.reshape(-1)).reshape(tokens.shape + (-1,))
+
+
 def attn_sublayer_full(lp: Params, cfg: ModelConfig, x: torch.Tensor,
                        positions: torch.Tensor, rt: Optional[Runtime] = None,
                        alora: Optional[Params] = None,
                        adapter_idx: Optional[torch.Tensor] = None, *,
                        causal: bool = True, return_kv: bool = False,
-                       tp=None):
+                       tp=None, cp=None):
     """Full-sequence attention sublayer with its residual.  x: (B, S, d);
     positions: (B, S).  ``alora``/``adapter_idx``: one layer's stacked
     adapter weights (leading slot axis) and the per-token slot, each Q/K/V
-    projection one fused aLoRA call.  Causal attention takes the
-    configuration's window; ``rt.flash_remat`` selects the recomputing
+    projection one fused aLoRA call.  Causal attention takes
+    :func:`effective_window`; ``rt.flash_remat`` selects the recomputing
     backward.  ``tp``: a rank's share of a sharded step (``cfg`` then
     carries the rank's head counts; Wo's partial sums are reduced).
-    Returns (x, (k, v) after RoPE | None)."""
+    ``cp``: a context-parallel rank (x holds its rows of the sequence;
+    K/V are gathered over ``model``).  Returns (x, (k, v) after RoPE |
+    None)."""
     rt = rt or Runtime()
-    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    h = _enter(tp, L.rmsnorm(x, lp["ln1"], cfg.norm_eps), "attn")
     q, k, v = L.qkv_project(lp["attn"], cfg, h, alora, adapter_idx)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    window = effective_window(cfg) if causal else 0
-    if rt.flash_remat:
+    window = effective_window(cfg, rt) if causal else 0
+    if cp is not None:
+        o = cp.attention(q, k, v, causal, window)
+    elif rt.flash_remat:
         o = flash_attention_remat(q, k, v, causal, window, 0, rt.q_block,
                                   rt.kv_block)
     else:
@@ -258,19 +356,24 @@ def attn_sublayer_full(lp: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def cross_attn_sublayer(lp: Params, cfg: ModelConfig, x: torch.Tensor,
-                        xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+                        xk: torch.Tensor, xv: torch.Tensor, tp=None
+                        ) -> torch.Tensor:
     """Decoder → encoder cross-attention with its residual, given the
-    projected encoder K/V (B, Se, KV, hd); x: (B, S, d)."""
-    h = L.rmsnorm(x, lp["xln"], cfg.norm_eps)
+    projected encoder K/V (B, Se, KV, hd); x: (B, S, d).  ``tp``: as in
+    :func:`attn_sublayer_full`."""
+    h = _enter(tp, L.rmsnorm(x, lp["xln"], cfg.norm_eps), "attn")
     q = (h @ lp["xattn"]["wq"]).reshape(
         h.shape[:-1] + (cfg.num_heads, cfg.head_dim))
-    return x + L.out_project(lp["xattn"], cfg, cross_attention(q, xk, xv))
+    return x + _reduced(L.out_project(lp["xattn"], cfg,
+                                      cross_attention(q, xk, xv)), tp, "attn")
 
 
-def encoder_kv(lp: Params, cfg: ModelConfig, enc_out: torch.Tensor
+def encoder_kv(lp: Params, cfg: ModelConfig, enc_out: torch.Tensor, tp=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Project the encoder output (B, Se, d) to this decoder layer's
-    cross K/V, each (B, Se, KV, hd)."""
+    cross K/V, each (B, Se, KV, hd) (the rank's K/V heads under
+    ``tp``)."""
+    enc_out = _enter(tp, enc_out, "attn")
     B, Se, _ = enc_out.shape
     shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
     return ((enc_out @ lp["xattn"]["wk"]).reshape(shape),
@@ -295,22 +398,26 @@ def run_encoder(enc_params: Params, cfg: ModelConfig, frames: torch.Tensor,
 
 def mlp_sublayer(lp: Params, cfg: ModelConfig, x: torch.Tensor,
                  rt: Optional[Runtime] = None, *, with_aux: bool = False,
-                 tp=None):
+                 tp=None, batch_sharded: bool = False):
     """MLP or MoE sublayer with its residual (the reference's dispatch on
-    ``cfg.moe``).  Returns x; with ``with_aux``, (x, aux) as the
-    reference's does: the MoE load-balance loss, a float32 zero for a
-    dense MLP.  The serving steps leave ``with_aux`` off and compute no
-    aux.  ``tp``: a rank's share of a sharded step (its slice of the
-    experts or of d_ff; the partial outputs are reduced)."""
+    ``cfg.moe`` and ``rt.moe_impl``).  Returns x; with ``with_aux``, (x,
+    aux) as the reference's does: the MoE load-balance loss, a float32
+    zero for a dense MLP.  The serving steps leave ``with_aux`` off and
+    compute no aux.  ``tp``: a rank's share of a sharded step (its slice
+    of the experts or of d_ff; the partial outputs are reduced);
+    ``batch_sharded``: x holds this data rank's rows of the batch (the
+    aux then takes the data axis's rows too)."""
+    rt = rt or Runtime()
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
-        y, aux = moe_apply(lp["moe"], cfg, h,
-                           impl=(rt or Runtime()).moe_impl,
-                           with_aux=with_aux,
-                           experts=None if tp is None or not tp.layout.moe
-                           else tp.layout.experts)
-        y = _reduced(y, tp, "moe")
+        y, aux = moe_apply(lp["moe"], cfg, h, impl=rt.moe_impl,
+                           with_aux=with_aux, tp=tp,
+                           capacity_factor=rt.capacity_factor,
+                           batch_sharded=batch_sharded)
+        if rt.moe_impl == "masked_dense":       # the rank's partial sum
+            y = _reduced(y, tp, "moe")
     else:
+        h = _enter(tp, h, "mlp")
         y = _reduced(L.mlp_apply(lp["mlp"], cfg, h), tp, "mlp")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return (x + y, aux) if with_aux else x + y
@@ -320,15 +427,16 @@ def ssm_sublayer_full(lp: Params, cfg: ModelConfig, x: torch.Tensor,
                       alora: Optional[Params] = None,
                       adapter_idx: Optional[torch.Tensor] = None,
                       ssm_state: Optional[torch.Tensor] = None,
-                      conv_state: Optional[torch.Tensor] = None):
+                      conv_state: Optional[torch.Tensor] = None, tp=None):
     """SSM sublayer with its residual over whole sequences.  Returns (x,
     the last ssm state, the conv window).  From a zero state (both states
     None) and with no gradient needed, the scan is the dense SSD kernel
-    (``ssm.ssd_forward``'s dispatch rule)."""
-    h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
+    (``ssm.ssd_forward``'s dispatch rule).  ``tp``: a rank's share of a
+    sharded step (its SSM heads)."""
+    h = _enter(tp, L.rmsnorm(x, lp["ln"], cfg.norm_eps), "ssm")
     y, st, cv = ssd_forward(lp["ssm"], cfg, h, ssm_state=ssm_state,
                             conv_state=conv_state, alora=alora,
-                            adapter_idx=adapter_idx)
+                            adapter_idx=adapter_idx, tp=tp)
     return x + y, st, cv
 
 
@@ -352,6 +460,13 @@ def _layer_adapters(cfg: ModelConfig, adapters: Optional[Params]
         else per_layer_adapters(cfg, adapters)
 
 
+def _take_rows(sl: slice, *ts):
+    """Each tensor's rows ``sl``, as a fresh tensor where that is a part
+    of them (the kernels take 16-byte-aligned arguments)."""
+    return [None if t is None else t if (sl.start, sl.stop) == (0, len(t))
+            else t[sl].clone() for t in ts]
+
+
 # ---------------------------------------------------------------------------
 # forward_full: train / prefill
 # ---------------------------------------------------------------------------
@@ -373,19 +488,52 @@ def forward_full(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     each token's slot (0: base weights).  ``rt.remat`` recomputes each
     layer in the backward (``torch.utils.checkpoint``).
 
+    Under ``rt.mesh`` every rank passes the whole batch (tokens,
+    positions, embeddings, adapter indices) with ITS slice of the
+    params and adapters (``distributed.sharding.shard_params`` /
+    ``shard_adapter_layers``; anything else raises) and gets back its
+    rows of the batch (``TensorParallel.batch_rows``: its block over
+    ``data`` when B divides the data axis, else every row).  Under
+    ``rt.context_parallel`` the params are its FSDP shards
+    (``shard_fsdp_params``) and it gets back its rows and its block of
+    the sequence over ``model``.
+
     Returns (hidden (B, S_total, d), aux (float32 scalar: the MoE
     load-balance losses summed over layers), caches | None), the caches
     one dict per layer in network order: {"k", "v" (B, S_total, KV, hd)
     after RoPE[, "xk", "xv"]} or {"ssm" (B, nh, N, P) float32, "conv" (B,
-    W-1, ch)}."""
+    W-1, ch)} (the rank's heads under a mesh)."""
     rt = rt or Runtime()
-    x = L.embed(params["embed"], tokens)
+    tp, cp = _tp(cfg, rt), _cp(cfg, rt)
+    lcfg = cfg if tp is None else tp.lcfg
+    sh = tp or cp
+    batch_sharded = False
+    if tp is not None:
+        check_local(params, tp.layout, "params")
+        if adapters is not None:
+            check_local(adapters, tp.layout, "adapters")
+    if cp is not None:
+        cp.check(params, cfg, extra_embeds)
+    if sh is not None:
+        batch_sharded = sh.batch_sharded(tokens.shape[0])
+        tokens, positions, extra_embeds, adapter_idx = _take_rows(
+            sh.batch_rows(tokens.shape[0]), tokens, positions, extra_embeds,
+            adapter_idx)
+    if cp is not None:
+        B, S = tokens.shape
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
+        cols = cp.seq_cols(S)
+        tokens, positions = tokens[:, cols], positions[:, cols]
+        if adapter_idx is not None:
+            adapter_idx = adapter_idx[:, cols]
+    x = _embed(params, tokens, tp, cp)
     enc_out = None
     if cfg.is_encoder_decoder:
         if extra_embeds is None:
             raise ValueError(f"{cfg.name} needs audio frame embeddings "
                              "(extra_embeds)")
-        enc_out = run_encoder(params["encoder"], cfg, extra_embeds, rt)
+        enc_out = run_encoder(params["encoder"], lcfg, extra_embeds, rt, tp)
     elif extra_embeds is not None:                      # vision: patches
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         if adapter_idx is not None:
@@ -396,28 +544,35 @@ def forward_full(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
 
-    def layer(kind, lp, al):
+    def layer(i, kind, lp, al):
         def f(x):
+            if cp is not None:
+                lp_ = cp.gather(("layers", i), lp)
+            else:
+                lp_ = lp
             if kind == SSM:
-                x, st, cv = ssm_sublayer_full(lp, cfg, x, al, adapter_idx)
+                x, st, cv = ssm_sublayer_full(lp_, cfg, x, al, adapter_idx,
+                                              tp=tp)
                 return x, torch.zeros((), device=x.device), \
                     {"ssm": st, "conv": cv}
-            x, (k, v) = attn_sublayer_full(lp, cfg, x, positions, rt, al,
-                                           adapter_idx, return_kv=True)
+            x, (k, v) = attn_sublayer_full(lp_, lcfg, x, positions, rt, al,
+                                           adapter_idx, return_kv=True,
+                                           tp=tp, cp=cp)
             cache = {"k": k, "v": v}
             if cfg.is_encoder_decoder:
-                xk, xv = encoder_kv(lp, cfg, enc_out)
-                x = cross_attn_sublayer(lp, cfg, x, xk, xv)
+                xk, xv = encoder_kv(lp_, lcfg, enc_out, tp)
+                x = cross_attn_sublayer(lp_, lcfg, x, xk, xv, tp)
                 cache.update(xk=xk, xv=xv)
-            x, aux = mlp_sublayer(lp, cfg, x, rt, with_aux=True)
+            x, aux = mlp_sublayer(lp_, cfg, x, rt, with_aux=True, tp=tp,
+                                  batch_sharded=batch_sharded)
             return x, aux, cache
         return f
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [] if return_caches else None
-    for (kind, lp), al in zip(iter_layers(params, cfg),
-                              _layer_adapters(cfg, adapters)):
-        f = layer(kind, lp, al)
+    for i, ((kind, lp), al) in enumerate(zip(iter_layers(params, cfg),
+                                             _layer_adapters(cfg, adapters))):
+        f = layer(i, kind, lp, al)
         if rt.remat and torch.is_grad_enabled():
             x, aux, cache = checkpoint(f, x, use_reentrant=False)
         else:
@@ -425,15 +580,18 @@ def forward_full(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         aux_total = aux_total + aux
         if return_caches:
             caches.append(cache)
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    final = params["final_norm"] if cp is None \
+        else cp.param(("final_norm",), params["final_norm"])
+    x = L.rmsnorm(x, final, cfg.norm_eps)
     return x, aux_total, caches
 
 
 # ---------------------------------------------------------------------------
 # decode_step: one token against dense caches
 # ---------------------------------------------------------------------------
-def _cache_len(cfg: ModelConfig, max_len: int) -> int:
-    window = effective_window(cfg)
+def _cache_len(cfg: ModelConfig, max_len: int,
+               rt: Optional[Runtime] = None) -> int:
+    window = effective_window(cfg, rt)
     return min(max_len, window) if window else max_len
 
 
@@ -442,20 +600,34 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        ) -> List[Params]:
     """Zero dense decode caches, one dict per layer in network order:
     attention K/V (B, S_cache, KV, hd) with S_cache = min(max_len, W)
-    under a window (a ring buffer), int8 with float32 scales "ks"/"vs"
-    (B, S_cache, KV) under ``rt.kv_cache_quant``, and an
-    encoder-decoder's cross K/V (B, encoder_seq_len, KV, hd); SSM layers'
-    float32 state (B, nh, N, P) and conv window (B, W-1, ch)."""
+    under a window (:func:`effective_window`; a ring buffer), int8 with
+    float32 scales "ks"/"vs" (B, S_cache, KV) under ``rt.kv_cache_quant``,
+    and an encoder-decoder's cross K/V (B, encoder_seq_len, KV, hd); SSM
+    layers' float32 state (B, nh, N, P) and conv window (B, W-1, ch).
+
+    Under ``rt.mesh`` (a live mesh, or an ``{axis: size}`` mapping for
+    the dry run) they are the rank's: its rows of the batch, the K/V
+    heads its query heads read (a head replicated on every rank that
+    reads it when KV < model), its SSM heads.  ``device="meta"`` gives
+    shapes without storage."""
     rt = rt or Runtime()
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     dtype = L.dtype_of(cfg)
-    s_cache = _cache_len(cfg, max_len)
-    kv_shape = (batch, s_cache, cfg.num_kv_heads, cfg.head_dim)
+    lay, batch = local_layout(cfg, rt, batch)
+    kv = cfg.num_kv_heads if lay is None else len(lay.kv_heads)
+    s_cache = _cache_len(cfg, max_len, rt)
+    kv_shape = (batch, s_cache, kv, cfg.head_dim)
     caches: List[Params] = []
     for kind in cfg.pattern():
         if kind == SSM:
-            st, cv = init_ssm_state(cfg, batch, dev)
-            caches.append({"ssm": st, "conv": cv})
+            s = cfg.ssm
+            _, nh, ch = ssm_dims(cfg) if lay is None else lay.ssm_local_dims()
+            caches.append({
+                "ssm": torch.zeros((batch, nh, s.state_dim, s.head_dim),
+                                   dtype=torch.float32, device=dev),
+                "conv": torch.zeros((batch, s.conv_width - 1, ch),
+                                    dtype=dtype, device=dev)})
             continue
         kv_dtype = torch.int8 if rt.kv_cache_quant else dtype
         c = {"k": torch.zeros(kv_shape, dtype=kv_dtype, device=dev),
@@ -465,9 +637,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                                   device=dev)
             c["vs"] = torch.zeros_like(c["ks"])
         if cfg.is_encoder_decoder:
-            c["xk"] = torch.zeros((batch, cfg.encoder_seq_len,
-                                   cfg.num_kv_heads, cfg.head_dim),
-                                  dtype=dtype, device=dev)
+            c["xk"] = torch.zeros((batch, cfg.encoder_seq_len, kv,
+                                   cfg.head_dim), dtype=dtype, device=dev)
             c["xv"] = torch.zeros_like(c["xk"])
         caches.append(c)
     return caches
@@ -480,27 +651,46 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     """One autoregressive step.  token: (B, 1) int; ``cache_len``: the
     tokens already in the caches (an int or a 0-dim tensor; the new token
     is written at that position).  The caches are updated IN PLACE and
-    returned.  Returns (logits (B, 1, Vpad), caches)."""
+    returned.  Returns (logits (B, 1, Vpad), caches).
+
+    Under ``rt.mesh``: as :func:`forward_full`, the whole batch's tokens
+    and adapter indices with the rank's params, adapters and caches
+    (:func:`init_decode_caches` under the same ``rt``); the logits are
+    the rank's rows, every column of the padded vocab."""
     rt = rt or Runtime()
-    x = L.embed(params["embed"], token)
+    if rt.context_parallel and rt.mesh is not None:
+        raise ValueError("context parallelism serves the full-sequence "
+                         "prefill (forward_full), not decode_step")
+    tp = _tp(cfg, rt)
+    lcfg = cfg if tp is None else tp.lcfg
+    batch_sharded = False
+    if tp is not None:
+        check_local(params, tp.layout, "params")
+        if adapters is not None:
+            check_local(adapters, tp.layout, "adapters")
+        batch_sharded = tp.batch_sharded(token.shape[0])
+        token, adapter_idx = _take_rows(tp.batch_rows(token.shape[0]),
+                                        token, adapter_idx)
+        _check_caches(caches, lcfg, tp, token.shape[0])
+    x = _embed(params, token, tp)
     B = x.shape[0]
     pos = cache_len
     positions = torch.as_tensor(pos, device=x.device).reshape(1, 1) \
         .expand(B, 1)
-    window = effective_window(cfg)
+    window = effective_window(cfg, rt)
     for (kind, lp), al, cache in zip(iter_layers(params, cfg),
                                      _layer_adapters(cfg, adapters), caches):
         if kind == SSM:
-            h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
+            h = _enter(tp, L.rmsnorm(x, lp["ln"], cfg.norm_eps), "ssm")
             y, st, cv = ssd_decode_step(lp["ssm"], cfg, h, cache["ssm"],
                                         cache["conv"], alora=al,
-                                        adapter_idx=adapter_idx)
+                                        adapter_idx=adapter_idx, tp=tp)
             cache["ssm"].copy_(st)
             cache["conv"].copy_(cv)
             x = x + y
             continue
-        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.qkv_project(lp["attn"], cfg, h, al, adapter_idx)
+        h = _enter(tp, L.rmsnorm(x, lp["ln1"], cfg.norm_eps), "attn")
+        q, k, v = L.qkv_project(lp["attn"], lcfg, h, al, adapter_idx)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         n = pos + 1
@@ -518,25 +708,44 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             write_kv_cache(cache["k"], cache["v"], k, v, pos, window=window)
             o = decode_attention(q, cache["k"], cache["v"], n,
                                  window=window)
-        x = x + L.out_project(lp["attn"], cfg, o)
+        x = x + _reduced(L.out_project(lp["attn"], lcfg, o), tp, "attn")
         if cfg.is_encoder_decoder:
-            x = cross_attn_sublayer(lp, cfg, x, cache["xk"], cache["xv"])
-        x = mlp_sublayer(lp, cfg, x, rt)
+            x = cross_attn_sublayer(lp, lcfg, x, cache["xk"], cache["xv"],
+                                    tp)
+        x = mlp_sublayer(lp, cfg, x, rt, tp=tp, batch_sharded=batch_sharded)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return logits_for(params, cfg, x), caches
+    return logits_for(params, cfg, x, rt), caches
+
+
+def _check_caches(caches: List[Params], lcfg: ModelConfig, tp, rows: int
+                  ) -> None:
+    """Raise unless ``caches`` are the rank's (its rows, K/V heads and
+    SSM heads)."""
+    nh = tp.layout.ssm_local_dims()[1] if lcfg.ssm is not None else 0
+    for i, c in enumerate(caches):
+        key, dim, want = ("ssm", 1, nh) if "ssm" in c \
+            else ("k", 2, lcfg.num_kv_heads)
+        got = c[key].shape
+        if got[0] != rows or got[dim] != want:
+            raise ValueError(
+                f"caches[{i}][{key!r}]: shape {tuple(got)} is not this "
+                f"rank's ({rows} rows, {want} heads on dim {dim}); build "
+                "them with init_decode_caches or prefill_to_decode_caches "
+                "under the same Runtime")
 
 
 def prefill_to_decode_caches(cfg: ModelConfig, prefill_caches: List[Params],
-                             seq_len: int, max_len: int) -> List[Params]:
+                             seq_len: int, max_len: int,
+                             rt: Optional[Runtime] = None) -> List[Params]:
     """Turn ``forward_full(..., return_caches=True)``'s caches into
     :func:`init_decode_caches`'s layout (model-dtype K/V, as the
-    reference's): K/V placed in a max_len cache, or under a window in the
-    ring buffer's slot ``p % W`` for the last min(S, W) tokens.  SSM
-    states are copied (``decode_step`` updates its caches in place);
-    cross K/V carry over as they are.  (The reference's ``rt`` argument
-    only carries its window override, A14b.)"""
-    window = effective_window(cfg)
-    s_cache = _cache_len(cfg, max_len)
+    reference's): K/V placed in a max_len cache, or under a window
+    (:func:`effective_window` of ``rt``) in the ring buffer's slot ``p %
+    W`` for the last min(S, W) tokens.  SSM states are copied
+    (``decode_step`` updates its caches in place); cross K/V carry over
+    as they are.  A rank's caches stay the rank's."""
+    window = effective_window(cfg, rt)
+    s_cache = _cache_len(cfg, max_len, rt)
     S = seq_len
 
     def place(a):                                       # (B, S, KV, hd)
@@ -562,6 +771,16 @@ def prefill_to_decode_caches(cfg: ModelConfig, prefill_caches: List[Params],
     return new
 
 
-def logits_for(params: Params, cfg: ModelConfig, hidden: torch.Tensor
-               ) -> torch.Tensor:
-    return L.unembed(params["embed"], hidden, cfg.tie_embeddings)
+def logits_for(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+               rt: Optional[Runtime] = None) -> torch.Tensor:
+    """The padded-vocab logits of ``hidden``; under ``rt.mesh`` from the
+    rank's vocab slice, gathered over ``model`` (every rank gets every
+    column)."""
+    tp, cp = _tp(cfg, rt), _cp(cfg, rt)
+    emb = params["embed"]
+    if cp is not None:
+        emb = cp.gather(("embed",), emb)
+    if tp is None:
+        return L.unembed(emb, hidden, cfg.tie_embeddings)
+    logits = L.unembed(emb, tp.enter(hidden, "vocab"), cfg.tie_embeddings)
+    return tp.gather_vocab(logits)

@@ -188,7 +188,7 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 alora: Optional[Params] = None,
                 adapter_idx: Optional[torch.Tensor] = None,
                 valid_len: Optional[int] = None,
-                return_boundary_states: bool = False):
+                return_boundary_states: bool = False, tp=None):
     """Chunked SSD over whole sequences (chunks of ``cfg.ssm.chunk_size``
     tokens).  x: (B, S, d).  Returns (y (B, S, d), ssm_state (B, nh, N,
     P) float32, conv_state (B, W-1, ch)).
@@ -205,11 +205,17 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     gradient needed (:func:`dense_scan_applies`), it is the dense SSD
     scan ``ssd_chunk_scan`` (the kernel on a CUDA tensor, its plain
     version on the CPU); otherwise :func:`chunked_scan`, which autograd
-    differentiates."""
+    differentiates.
+
+    ``tp``: a rank's share of a sharded step
+    (``distributed.parallel.TensorParallel``): ``p`` and the adapter
+    hold the rank's heads (the widths are read off ``p``), the gated
+    norm's sum of squares and out_proj's product are summed over
+    ``model``."""
     s = cfg.ssm
     B, S, _ = x.shape
-    d_inner, nh, conv_ch = ssm_dims(cfg)
-    G, N, P = s.ngroups, s.state_dim, s.head_dim
+    N, P = s.state_dim, s.head_dim
+    nh, d_inner, conv_ch, G = _widths(p, N)
     hpg = nh // G
     W = s.conv_width
     Q = min(s.chunk_size, S)
@@ -254,8 +260,8 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y, state, after = chunked_scan(xs, Bh, Ch, dA, dt, Q, ssm_state)
     y = y + p["D"][:, None] * xs
     y = _rmsnorm_gated(y.reshape(B, S, d_inner), z, p["norm_w"],
-                       cfg.norm_eps)
-    out = (y @ p["out_proj"].float()).to(x.dtype)
+                       cfg.norm_eps, tp)
+    out = _out_proj(y, p, tp).to(x.dtype)
     if not return_boundary_states:
         return out, state, new_conv_state
     # the raw conv window ending at each chunk boundary (clamped to S)
@@ -264,6 +270,21 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     idx = ends[:, None] + torch.arange(W - 1, device=x.device)[None, :]
     boundary_conv = full_raw[:, idx].transpose(0, 1)       # (nc, B, W-1, ch)
     return out, state, new_conv_state, (after, boundary_conv)
+
+
+def _widths(p: Params, N: int) -> Tuple[int, int, int, int]:
+    """(heads, d_inner, conv channels, groups) of the SSM weights ``p``:
+    the model's, or a rank's head-aligned slice of them."""
+    nh, d_inner, ch = (p["A_log"].shape[0], p["norm_w"].shape[0],
+                       p["conv_w"].shape[1])
+    return nh, d_inner, ch, (ch - d_inner) // (2 * N)
+
+
+def _out_proj(y: torch.Tensor, p: Params, tp) -> torch.Tensor:
+    """The float32 output projection, summed over ``model`` on a rank
+    holding a slice of the heads."""
+    out = y @ p["out_proj"].float()
+    return out if tp is None else tp.reduce(out, "ssm")
 
 
 def dense_scan_applies(p: Params, x: torch.Tensor,
@@ -282,15 +303,16 @@ def dense_scan_applies(p: Params, x: torch.Tensor,
 def ssd_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     ssm_state: torch.Tensor, conv_state: torch.Tensor,
                     alora: Optional[Params] = None,
-                    adapter_idx: Optional[torch.Tensor] = None
+                    adapter_idx: Optional[torch.Tensor] = None, tp=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token of the recurrence.  x: (B, 1, d); ssm_state (B, nh, N,
     P) float32; conv_state (B, W-1, ch).  Returns (y (B, 1, d), the new
-    ssm state, the new conv window)."""
+    ssm state, the new conv window).  ``tp``: as in
+    :func:`ssd_forward` (the states hold the rank's heads)."""
     s = cfg.ssm
     Bsz = x.shape[0]
-    d_inner, nh, conv_ch = ssm_dims(cfg)
-    G, N, P = s.ngroups, s.state_dim, s.head_dim
+    N, P = s.state_dim, s.head_dim
+    nh, d_inner, conv_ch, G = _widths(p, N)
     hpg = nh // G
     x0 = x[:, 0]
     z = x0 @ p["in_z"]
@@ -317,8 +339,9 @@ def ssd_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     new_state = dA[..., None, None] * ssm_state \
         + torch.einsum("bhn,bhp->bhnp", Bt * dt[..., None], xt)
     y = torch.einsum("bhn,bhnp->bhp", Ct, new_state) + p["D"][:, None] * xt
-    y = _rmsnorm_gated(y.reshape(Bsz, d_inner), z, p["norm_w"], cfg.norm_eps)
-    out = (y @ p["out_proj"].float()).to(x.dtype)
+    y = _rmsnorm_gated(y.reshape(Bsz, d_inner), z, p["norm_w"], cfg.norm_eps,
+                       tp)
+    out = _out_proj(y, p, tp).to(x.dtype)
     return out[:, None, :], new_state, full[:, 1:]
 
 
@@ -330,7 +353,7 @@ def _rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     if tp is None or not tp.layout.ssm:
         var = y.square().mean(dim=-1, keepdim=True)
     else:
-        var = tp.reduce(y.square().sum(dim=-1, keepdim=True), "ssm") \
+        var = tp.norm_sum(y.square().sum(dim=-1, keepdim=True)) \
             / tp.layout.d_inner
     return y * torch.rsqrt(var + eps) * w.float()
 
@@ -400,9 +423,7 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     s = cfg.ssm
     N, P = s.state_dim, s.head_dim
     # the (rank's) widths: its heads, their x channels, their groups
-    nh, d_inner, conv_ch = (p["A_log"].shape[0], p["norm_w"].shape[0],
-                            p["conv_w"].shape[1])
-    G = (conv_ch - d_inner) // (2 * N)
+    nh, d_inner, conv_ch, G = _widths(p, N)
     hpg = nh // G
     W = s.conv_width
     dev = x.device
@@ -465,5 +486,4 @@ def ssd_ragged_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     y = y[own].float() + p["D"][:, None] * xs[own]
     y = _rmsnorm_gated(y.reshape(-1, d_inner), z, p["norm_w"], cfg.norm_eps,
                        tp)
-    out = y @ p["out_proj"].float()
-    return (out if tp is None else tp.reduce(out, "ssm")).to(x.dtype)
+    return _out_proj(y, p, tp).to(x.dtype)

@@ -123,3 +123,171 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params
         p.copy_((p.float() - lr * delta).to(p.dtype))
     return params, AdamWState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# a rank's AdamW under a mesh: tensor-parallel slices, data-parallel
+# gradients, ZeRO-1 moments
+# ---------------------------------------------------------------------------
+def zero1_slice(t: torch.Tensor, dim, ds: int, dr: int) -> torch.Tensor:
+    """Data rank ``dr``'s block of ``t`` along ``dim`` (None: ``t``)."""
+    if dim is None:
+        return t
+    k = t.shape[dim] // ds
+    return t.narrow(dim, dr * k, k)
+
+
+def init_sharded_adamw(params, dims, ds: int, dr: int) -> AdamWState:
+    """Zero moments of data rank ``dr``'s ZeRO-1 blocks of the rank's
+    parameter slices (``dims``: ``sharding.zero1_local_dims``)."""
+    def zeros(path, p):
+        s = zero1_slice(p, dims[path], ds, dr)
+        return torch.zeros(s.shape, dtype=torch.float32, device=p.device)
+    leaves = {path: p for path, p in tree_paths(params)}
+    mu = _rebuild_like(params, [zeros(pt, p) for pt, p in leaves.items()])
+    nu = _rebuild_like(params, [zeros(pt, p) for pt, p in leaves.items()])
+    dev = tree_leaves(params)[0].device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=mu, nu=nu)
+
+
+def _rebuild_like(tree, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _bucketed(tensors, op):
+    """Apply ``op`` (one collective on a flat buffer) to ``tensors``
+    concatenated per dtype; returns the results split back, in order."""
+    out = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = op(torch.cat([tensors[i].reshape(-1) for i in idx]))
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view(tensors[i].shape)
+            off += n
+    return out
+
+
+def copies(tp, params) -> list:
+    """Per leaf of the rank's ``params`` (in order): None where the rank
+    holds it whole (a copy on every model rank), else (dim, the rank's
+    indices along it as a tensor, the number of model ranks holding each
+    of them as a float32 tensor) — more than one where a K/V head or an
+    SSM group's B/C channels are replicated on several ranks."""
+    from repro_torch.distributed.sharding import rank_layout
+    lays = [rank_layout(tp.layout.cfg, tp.ms, r) for r in range(tp.ms)]
+    out = []
+    for path, p in tree_paths(params):
+        pl = tp.layout.plan(path, tuple(p.shape))
+        if pl is None:
+            out.append(None)
+            continue
+        dim, idx, n = pl
+        count = torch.zeros(n, dtype=torch.float32)
+        for lay in lays:
+            count[lay.plan(path, tuple(p.shape))[1]] += 1
+        idx_t = torch.tensor(idx)
+        out.append((dim, idx_t.to(p.device), count[idx_t].to(p.device)))
+    return out
+
+
+@torch.no_grad()
+def sharded_adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
+                         tp, dims, *, sum_data: bool = True, held=None
+                         ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step on a rank of a tensor- and data-parallel step.
+    ``grads``: the rank's gradients of its parameter slices, as the list
+    of the params' leaves in order; ``held``: :func:`copies` of the
+    params (computed here when None).
+
+    1. ``sum_data``: the gradients are summed over ``data`` (one float32
+       all_reduce; each data rank's loss holds its rows' share).
+    2. An element held by several model ranks inside a split leaf (a
+       replicated K/V head's Wk/Wv columns, an SSM group's B/C columns
+       of ``in_xbc`` and the conv) holds a partial gradient on each (its
+       own heads' share): the copies are summed over the ranks that hold
+       them (one all_reduce over ``model`` of those leaves at full
+       width), so they stay equal.
+    3. ``global_norm`` counts every element of the full gradient once:
+       each element's square is divided by its copies over ``model`` (a
+       whole leaf: ms) and the sum taken over ``model``.
+    4. ZeRO-1: data rank ``dr`` updates its ``dims`` block of each
+       parameter and of the moments (``state``'s leaves are those
+       blocks), then the blocks are all-gathered over ``data`` (one
+       all_gather per parameter dtype).
+
+    Params and moments are updated in place.  Returns (params, new
+    state, {"grad_norm", "lr"})."""
+    from repro_torch.distributed.parallel import all_gather, all_reduce
+    paths = tree_paths(params)
+    held = copies(tp, params) if held is None else held
+    g = [x.float() for x in grads]
+    ds, dr, ms = tp.ds, tp.data_rank, tp.ms
+    if sum_data and tp.data_group is not None:
+        g = _bucketed(g, lambda f: all_reduce(f, tp.data_group))
+    shared = [i for i, h in enumerate(held)
+              if h is not None and bool((h[2] > 1).any())]
+    if shared and tp.model_group is not None:
+        full = []
+        for i in shared:
+            dim, idx, count = held[i]
+            shape = list(g[i].shape)
+            shape[dim] = int(tp.layout.plan(paths[i][0], tuple(
+                g[i].shape))[2])
+            full.append(g[i].new_zeros(shape).index_copy_(dim, idx, g[i]))
+        full = _bucketed(full, lambda f: all_reduce(f, tp.model_group))
+        for i, f in zip(shared, full):
+            g[i] = f.index_select(held[i][0], held[i][1])
+
+    def sumsq(x, h):
+        if h is None:
+            return x.square().sum() / ms
+        dim, _, count = h
+        per = x.square().transpose(0, dim).reshape(x.shape[dim], -1).sum(1)
+        return (per / count).sum()
+    sq = sum(sumsq(x, h) for x, h in zip(g, held))
+    if tp.model_group is not None:
+        sq = all_reduce(sq.reshape(1), tp.model_group)[0]
+    gnorm = torch.sqrt(sq)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    step = state.step + 1
+    lr = lr_at(cfg, step)
+    stepf = step.to(torch.float32)
+    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
+    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
+    gathered = []                         # (param, dim, its new block)
+    for (path, p), gi in zip(paths, g):
+        dim = dims[path]
+        m, v = tree_at(state.mu, path), tree_at(state.nu, path)
+        gs = zero1_slice(gi, dim, ds, dr) * scale
+        ps = zero1_slice(p, dim, ds, dr)
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * gs)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gs))
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if decays(path, p):
+            delta = delta + cfg.weight_decay * ps.float()
+        new = (ps.float() - lr * delta).to(p.dtype)
+        if dim is None:
+            p.copy_(new)
+        else:
+            gathered.append((p, dim, new))
+    by_dtype: Dict[torch.dtype, list] = {}
+    for item in gathered:
+        by_dtype.setdefault(item[2].dtype, []).append(item)
+    for items in by_dtype.values():
+        flat = torch.cat([n.reshape(-1) for _, _, n in items])
+        every = all_gather(flat, tp.data_group, 0)       # (ds · N,)
+        off = 0
+        for r in range(ds):
+            for p, dim, n in items:
+                k = n.shape[dim]
+                p.narrow(dim, r * k, k).copy_(
+                    every[off:off + n.numel()].view(n.shape))
+                off += n.numel()
+    return params, AdamWState(step, state.mu, state.nu), \
+        {"grad_norm": gnorm, "lr": lr}

@@ -151,7 +151,7 @@ def test_run_sections(capsys):
     assert out[-1].startswith("section/fig15/wall_s,")
     assert set(run.sections()) == {"mixed_batch", "mixed_batch_tp", "fig11",
                                    "fig10", "fig8", "sec441", "fig15",
-                                   "kernels"}
+                                   "kernels", "roofline"}
     with pytest.raises(SystemExit):
         run.main(["fig6"])
 

@@ -418,14 +418,28 @@ def test_adapters_convert_like_the_reference_stack():
             assert torch.equal(a[k], b[k])
 
 
-def test_runtime_mesh_fields_raise_citing_a14():
-    for kw in ({"mesh": object()}, {"context_parallel": True},
-               {"batch_axes": ("data",)}, {"shard_activations": True},
-               {"sequence_parallel": True}, {"window_override": 8},
-               {"model_axis": "tp"}, {"moe_impl": "expert_parallel"},
-               {"capacity_factor": 2.0}):
-        with pytest.raises(NotImplementedError, match="A14"):
-            M.Runtime(**kw)
+def test_runtime_accepts_mesh_fields():
+    """``Runtime`` takes the reference's mesh fields; ``window_override``
+    sizes the decode ring buffer as the reference's
+    ``init_decode_caches`` under ``Runtime(window_override=...)``."""
+    rt = M.Runtime(mesh={"data": 1, "model": 2}, moe_impl="expert_parallel",
+                   window_override=8, batch_axes=("data",),
+                   capacity_factor=2.0, context_parallel=False,
+                   shard_activations=True, sequence_parallel=True)
+    cfg = get_reduced("granite-3.2-8b")
+    assert M.effective_window(cfg, rt) == 8
+    assert M.effective_window(cfg) == 0
+    ref = JM.init_decode_caches(jax_reduced("granite-3.2-8b"), 2, 32,
+                                JM.Runtime(window_override=8))
+    got = M.init_decode_caches(cfg, 2, 32, M.Runtime(window_override=8),
+                               device="cpu")
+    assert tuple(got[0]["k"].shape) == ref["seg0"]["k"].shape[2:]
+    with pytest.raises(ValueError, match="moe impl"):
+        M.Runtime(moe_impl="scatter")
+    with pytest.raises(ValueError, match="model axis"):
+        M.Runtime(mesh={"model": 2}, model_axis="tp")
     with pytest.raises(TypeError):
         M.Runtime(skip_masked_blocks=True)
     M.Runtime(remat=True, flash_remat=True, kv_cache_quant=True)
+
+

@@ -167,12 +167,31 @@ def test_bfloat16_layer_stays_near_the_sequential_sum(setup):
     assert _rel(y.float(), want.float().numpy()) < 2e-2
 
 
-def test_expert_parallel_raises(setup):
-    cfg = setup["cfg"]
-    _, tx = _x(4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="A14"):
-        MoE.moe_apply(setup["params"]["layers"][0]["moe"], cfg, tx,
-                      impl="expert_parallel")
+@pytest.mark.parametrize("capacity_factor", [32.0, 0.05],
+                         ids=["cap32", "cap0.05"])
+def test_expert_parallel_matches_reference(setup, capacity_factor):
+    """``moe_apply(impl="expert_parallel")`` on one rank against the
+    reference's ``moe_expert_parallel`` on the 1-device host mesh
+    (``tests/test_moe.py``'s setup): the output within 1e-5 of max
+    |reference| and aux within 1e-6, at a capacity with no drops and at
+    one that drops most assignments (the same ones: a different drop
+    would move whole rows)."""
+    from repro.launch.mesh import make_host_mesh
+    cfg, cfg_j = setup["cfg"], setup["cfg_j"]
+    jx, tx = _x(2, 8, cfg.d_model, seed=2)
+    want, aux_j = JMoE.moe_expert_parallel(
+        setup["jlayers"][0]["moe"], cfg_j, jx, mesh=make_host_mesh(),
+        batch_axes=("data",), model_axis="model",
+        capacity_factor=capacity_factor)
+    y, aux = MoE.moe_apply(setup["params"]["layers"][0]["moe"], cfg, tx,
+                           impl="expert_parallel", with_aux=True,
+                           capacity_factor=capacity_factor)
+    assert _rel(y, want) < 1e-5
+    assert abs(float(aux) - float(aux_j)) < 1e-6
+    dropped = np.abs(np.asarray(want)).sum(-1) < 1e-12
+    assert (np.abs(y.numpy()).sum(-1) < 1e-12).tolist() == dropped.tolist()
+    if capacity_factor < 1:
+        assert dropped.any()
     with pytest.raises(ValueError, match="unknown"):
         MoE.moe_apply(setup["params"]["layers"][0]["moe"], cfg, tx,
                       impl="scatter")
