@@ -8,10 +8,11 @@ Phases, each of which exits non-zero on failure:
 1. card and setup: the card's name and power limit, the torch/CUDA
    versions, TF32 off, the build of the CUDA kernels from
    ``src/repro_torch/csrc`` (timed), and the port's static analyzer
-   (``python -m repro_torch.analysis``: the hot-path lint and the
-   resource-lifecycle check over ``repro_torch/{serving,kernels,obs}``
-   and the sharded step's ``distributed/parallel.py``;
-   any violation fails);
+   (``python -m repro_torch.analysis --skip-audit``: the hot-path lint
+   and the resource-lifecycle check over
+   ``repro_torch/{serving,kernels,obs}`` and the sharded step's
+   ``distributed/parallel.py``; any violation fails; its step audit is
+   phase 11);
 2. every kernel against its plain PyTorch version on the same card
    tensors, at the main paths' shapes, with times (CUDA events, L2
    flushed before each launch), the least time the card could take for
@@ -140,7 +141,8 @@ Phases, each of which exits non-zero on failure:
    a warm-up pass and a measured pass of 4 base → adapter → base
    pipelines, gen 32, eval 16, for the rank-8 vanilla-LoRA baseline and
    then rank-32 aLoRA, each stage's metrics and the eval speedups) at
-   prompts of 128 and 1,024 tokens, every kernel count set to 0 just
+   prompts of 128 and 1,024 tokens on granite's first ``LAUNCH_LAYERS``
+   (20) layers, every kernel count set to 0 just
    before and read just after each: one B1 and one fused B2 call per
    layer and mixed step, every aLoRA eval reusing the base request's
    computed full blocks (144 and 1,040 tokens), every LoRA eval none, the
@@ -164,7 +166,8 @@ Phases, each of which exits non-zero on failure:
    layer of a mixed step or a sequential call) with its wall seconds,
    mixed steps and mean wall ms a mixed step: (a) every bench's
    ``--smoke`` leg on the reduced float32 models with every reference
-   assert (Figs. 11, 15, 10 and 8/9 at their first sweep point, §4.4.1,
+   assert (Figs. 6/12, 11, 15, 10 and 8/9 at their first sweep point
+   (Fig. 6: every aLoRA eval reusing prompt tokens, no LoRA eval), §4.4.1,
    adapter churn against the sequential oracle, the Zipf leg's FCFS
    oracle against the affinity scheduler, sequential / mixed / async
    mixed with the 2 % tracing budget, the router at R = 1 and 2, and
@@ -229,7 +232,20 @@ Phases, each of which exits non-zero on failure:
    tensors; (c) the dry run
    (``repro_torch.launch.dryrun``) on both production meshes, and its
    per-rank param bytes of granite-3.2-8b at model=2 equal to phase 9's
-   measured bytes on a rank.
+   measured bytes on a rank;
+11. the step audit (Pass A, ``repro_torch.analysis.step_audit``): (a)
+   ``python -m repro_torch.analysis --device cuda --skip-lint`` over
+   every config at 1x1 and at data=2 × model=4 (one world of 8 ranks
+   sharing the card): no violation, and every collective fingerprint
+   equal to the goldens made on the CPU; (b) and (c), run at the end of
+   phase 3's serves of granite-3.2-8b (full width and depth, bf16) and
+   mamba2-2.7b (16 layers) on the engines that served them (their
+   weights are on the card only then), each on the batches of a short
+   capture serve on that engine after its timed one: no violation under ``torch.cuda.set_sync_debug_mode("error")``,
+   the traced step launching B1 and B2's fused entry once per attention
+   layer (40 each on granite) and B3 and B2's one-pair entry once per
+   SSM layer, the memory record and A5's allowed finding (mamba2's
+   float32 ``out_proj``, ROADMAP B'2) printed.
 
 ``PERF.md`` gives its run time on one H100, the kernels' build included.
 
@@ -1629,6 +1645,8 @@ def main_path(torch, arch: str, profile: bool, long: bool = False,
           flush=True)
     summary = serve_pipeline(torch, eng, cfg, PIPE,
                              min_hits=256 + cfg.num_patches)
+    if arch in AUDIT_ARCHS:
+        summary["step_audit"] = audit_served(torch, eng, arch)
     summary.update(arch=arch, weights_gb=weights_gb, num_layers=cfg.num_layers,
                    params=cfg.param_count(),
                    active_params=cfg.active_param_count(),
@@ -2300,6 +2318,10 @@ def parity(torch, arch: str, prompt_len: int = 40, mode: str = "mixed"):
 # the launcher's prompt lengths: its default, then one where prefill work
 # dominates
 LAUNCH_PROMPTS = (128, 1024)
+# the launcher runs serve granite-3.2-8b's widths at 20 of its 40 layers
+# (the first 20 of the fleet's weights), for the smoke's time budget:
+# their steps are host-bound, and their wall grows with the layers
+LAUNCH_LAYERS = 20
 # ``tests/test_router.py::run_trace`` at full width: 4 turns, prompts of
 # 256 + 4 (s % 3) tokens; 5 sessions, as the reference's trace has (with
 # an even count, round robin's cycle would put every session on the same
@@ -2726,8 +2748,9 @@ def fleet_path(torch, cfg, params, gen, tmp):
 
 def serving_tier(torch):
     """Phase 6: granite-3.2-8b at full width, random weights from a seed,
-    one copy on the card: the launcher at each of ``LAUNCH_PROMPTS``,
-    then the two-replica fleet."""
+    one copy on the card: the launcher at each of ``LAUNCH_PROMPTS`` on
+    its first ``LAUNCH_LAYERS`` layers, then the two-replica fleet on all
+    40."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -2738,13 +2761,19 @@ def serving_tier(torch):
     params = init_params(gen, cfg, device="cuda")
     adapters = {kind: S.init_adapters(gen, cfg, kind, device="cuda")
                 for kind in S.KINDS}
-    out = {"launcher": {}}
+    out = {"launcher": {}, "launcher_layers": LAUNCH_LAYERS}
+    lcfg = cfg.replace(num_layers=LAUNCH_LAYERS)
+    lparams = {**params, "layers": params["layers"][:LAUNCH_LAYERS]}
+    ladapters = {kind: S.init_adapters(gen, lcfg, kind, device="cuda")
+                 for kind in S.KINDS}
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
         for p in LAUNCH_PROMPTS:
-            print(f" [6] launcher, --prompt-len {p}", flush=True)
-            out["launcher"][p] = launcher_path(torch, cfg, params, adapters,
-                                               p, tmp)
+            print(f" [6] launcher, --prompt-len {p}, {LAUNCH_LAYERS} layers",
+                  flush=True)
+            out["launcher"][p] = launcher_path(torch, lcfg, lparams,
+                                               ladapters, p, tmp)
+        del lparams, ladapters
         print(" [6] fleet of 2 replicas", flush=True)
         out["fleet"] = fleet_path(torch, cfg, params, gen, tmp)
     del params, adapters
@@ -2800,10 +2829,12 @@ def bench_path(torch):
 
 def analyzer(root):
     """Phase 1: the port's static analyzer (``python -m
-    repro_torch.analysis``: the hot-path lint and the resource-lifecycle
-    check, pure AST) over the checkout's tree; any violation fails."""
+    repro_torch.analysis --skip-audit``: the hot-path lint and the
+    resource-lifecycle check, pure AST) over the checkout's tree; any
+    violation fails.  Its step audit runs in phase 11."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--skip-audit",
                           "--out", str(root / "results" / "torch")],
                          cwd=root, env={**os.environ,
                                         "PYTHONPATH": str(root / "src")},
@@ -2821,7 +2852,8 @@ def analyzer(root):
 # ---------------------------------------------------------------------------
 # full-width sweep points: the reference's lists, cut to keep the phase
 # near four minutes (PERF.md lists the cuts)
-FULL_SWEEPS = dict(fig11=dict(prompt_lens=[192]), fig15=dict(batches=[4]),
+FULL_SWEEPS = dict(fig6=dict(prompt_lens=[384]),
+                   fig11=dict(prompt_lens=[192]), fig15=dict(batches=[4]),
                    fig10=dict(gen_lens=[16]), fig8=dict(rates=[16.0]),
                    router=dict(fleet_sizes=(4,)))
 # Zipf at full width: 128 registrations (a rank-32 granite adapter holds
@@ -2843,12 +2875,15 @@ def bench_legs(smoke: bool):
                                         bench_batch_size,
                                         bench_generation_length,
                                         bench_mixed_batch,
-                                        bench_multi_adapter, bench_router)
+                                        bench_multi_adapter,
+                                        bench_prompt_length, bench_router)
     g, m2 = "granite-3.2-8b", "mamba2-2.7b"
     kw = dict(smoke=smoke, device="cuda")
     sw = (lambda k: {}) if smoke else FULL_SWEEPS.get
     zipf = {} if smoke else ZIPF_FULL
     legs = [
+        ("fig6", g, lambda: fig6_reuse(bench_prompt_length.run(
+            **kw, **sw("fig6")))),
         ("fig11", g, lambda: bench_adapter_base.run(**kw, **sw("fig11"))),
         ("fig15", g, lambda: bench_batch_size.run(**kw, **sw("fig15"))),
         ("fig10", g, lambda: bench_generation_length.run(**kw,
@@ -2866,6 +2901,19 @@ def bench_legs(smoke: bool):
         legs.append(("mixed_batch_mamba2", m2, lambda: bench_mixed_batch.run(
             m2, **kw)))
     return legs
+
+
+def fig6_reuse(rows):
+    """Fig. 6's evals: every aLoRA eval reuses prompt tokens of its base
+    request, no LoRA eval reuses any."""
+    for name, r in rows.items():
+        if name.startswith("fig6/eval/"):
+            alora = name.startswith("fig6/eval/alora/")
+            print(f"    {name}: reused tokens {r['hits']}, hit fraction "
+                  f"{r['hit']:.3f}", flush=True)
+            if (min(r["hits"]) <= 0) if alora else any(r["hits"]):
+                fail(f"{name}: reused tokens {r['hits']}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -4769,6 +4817,104 @@ def sharded_model_path(torch, tp_summary):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the step audit (Pass A, repro_torch.analysis.step_audit)
+# ---------------------------------------------------------------------------
+# (b) and (c): the engines of phase 3 audited at the end of their serve
+# (their full-width weights live on the card only then), each on the
+# batches of a short untimed capture serve on it
+AUDIT_ARCHS = ("granite-3.2-8b", "mamba2-2.7b")
+
+
+def audit_served(torch, eng, arch):
+    """Phase 11 (b)/(c), run inside phase 3: Pass A on ``eng`` (phase 3's
+    full-width bf16 engine at 1x1, after its timed serve) over the
+    batches of a short untimed capture serve on it
+    (``step_audit.capture_serve``, its requests on the engine's "eval"
+    adapter): no violation, ``set_sync_debug_mode("error")`` on and
+    silent, the traced step launching B1 and the fused B2 once per
+    attention layer and B3 and the one-pair B2 once per SSM layer; its
+    memory record and A5's allowed findings printed."""
+    from repro_torch.analysis import step_audit as sa
+    r = eng.runner
+    t0 = time.perf_counter()
+    steps0 = r.call_counts["mixed_step"]
+    batches, fetches = sa.capture_serve(eng, adapter="eval")
+    n_steps = r.call_counts["mixed_step"] - steps0
+    res = sa.audit_engine(eng, batches, fetches, n_steps, arch=arch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = {k: n for k, n in (("ragged_paged_attention", r.La),
+                              ("ragged_grouped_lora_qkv", r.La),
+                              ("ragged_grouped_lora", r.Ls),
+                              ("ragged_ssd_chunk_scan", r.Ls)) if n}
+    print(f"  [11{'b' if r.La else 'c'}] step audit of this engine: "
+          f"{len(batches)} batches captured, {n_steps} mixed steps; the "
+          f"traced step's launches {res.launches}; donated {res.donated}; "
+          f"sync debug mode 'error' "
+          f"{'on' if res.sync_guarded else 'OFF'}; memory "
+          + ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in res.memory.items())
+          + f"; {seconds:.1f} s", flush=True)
+    if res.allowed:
+        print(f"  [11] A5 flags {len(res.allowed)} copies on its allow-list "
+              f"(first: {res.allowed[0]}); the list: "
+              f"{dict(sa.ALLOWED_UPCASTS)}", flush=True)
+    if r.Ls and not res.allowed:
+        print("  [11] A5 flagged no float32 copy of out_proj", flush=True)
+    if res.violations or res.launches != want or not res.sync_guarded:
+        fail(f"phase 11 audit of {arch}: violations {res.violations}, "
+             f"launches {res.launches} (want {want}), sync guard "
+             f"{res.sync_guarded}")
+    return {"seconds": seconds, "batches": len(batches), "steps": n_steps,
+            "launches": res.launches, "donated": res.donated,
+            "memory": res.memory, "allowed": res.allowed,
+            "sync_async_identical": res.sync_async_identical}
+
+
+def step_audit_phase(mp):
+    """Phase 11: (a) ``python -m repro_torch.analysis --device cuda
+    --skip-lint`` over every config × mesh (the 2x4 mesh in one world of
+    8 ranks sharing the card): every step clean, every fingerprint equal
+    to the goldens made on the CPU; then (b)/(c)'s records from phase
+    3."""
+    from repro_torch.configs import list_archs
+    out_dir = ROOT / "results" / "torch"
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--device", "cuda", "--skip-lint", "--out",
+                          str(out_dir)],
+                         cwd=ROOT, env={**os.environ,
+                                        "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        print("  " + line, flush=True)
+    if run.returncode:
+        fail(f"python -m repro_torch.analysis --device cuda exited "
+             f"{run.returncode}:\n{run.stderr[-6000:]}")
+    if "in one world of 8 ranks" not in run.stdout:
+        fail("the 2x4 audit did not run in one world of 8 ranks")
+    n = 2 * len(list_archs())
+    with open(out_dir / "analysis_audit.jsonl") as f:
+        recs = [json.loads(line) for line in f][-n:]
+    if len(recs) != n or not all(r["ok"] and not r["fingerprint_drift"]
+                                 for r in recs):
+        fail(f"phase 11(a): {n} clean records expected, got {recs}")
+    table = {f"{r['arch']} [{r['mesh']}]": {
+        "donated": r["donated"], "counts": r["fingerprint"]["counts"],
+        "temp_mb": r["memory"].get("temp_size_bytes", 0) / 1e6}
+        for r in recs}
+    for k, v in table.items():
+        print(f"  {k}: donated {v['donated']}, collectives {v['counts']}, "
+              f"temp {v['temp_mb']:.3f} MB", flush=True)
+    served = {a: mp[a]["step_audit"] for a in AUDIT_ARCHS}
+    print(f"  [11a] {n} steps audited on the card in {seconds:.1f} s, no "
+          "violation, no drift from the CPU goldens; [11b/c] "
+          + ", ".join(f"{a} {v['seconds']:.1f} s" for a, v in served.items())
+          + " (inside phase 3)", flush=True)
+    return {"seconds": seconds, "records": table, "served": served}
+
+
 def kernel_entry(name, source, replaces, launches, steps, check, **extra):
     """One entry of the ``kernels`` line: the fields every kernel has,
     then what is particular to it."""
@@ -4980,6 +5126,9 @@ def main() -> None:
 
     phase("[10] the sharded full-sequence model and training")
     fm = sharded_model_path(torch, tp)
+
+    phase("[11] the step audit (Pass A) on the card")
+    audit = step_audit_phase(mp)
 
     g, m, z = (mp[a] for a in ("granite-3.2-8b", "mamba2-2.7b",
                                "zamba2-2.7b"))
@@ -5221,6 +5370,7 @@ def main() -> None:
                       "bench": bres, "serving_tier": tier,
                       "paper_benches": benches, "full_model": full,
                       "sharded_step": tp, "sharded_model": fm,
+                      "step_audit": audit,
                       "bench_seconds": bsec, "card": card,
                       "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}), flush=True)

@@ -24,8 +24,9 @@ inside ``Engine.step``'s call graph:
       logger so benchmarks can still account for it.
   B2, B3  (eager ``jnp`` dispatch outside jit; ``time.*`` inside jit)
       have no counterpart while the port's step is eager: every torch op
-      is its own dispatch by design, and nothing is traced.  They return
-      with the captured step (ROADMAP A8, A13b).
+      is its own dispatch by design, and nothing is captured.  They
+      return with the captured step alone (ROADMAP A8; Pass A, the step
+      audit, has landed and checks the eager step meanwhile).
   B4  trace recording (``repro_torch.obs.tracer``, reached from the hot
       graph through ``self.tracer.*``) must be append-only plain python:
       EVERY function in the obs recording files is checked wholesale —

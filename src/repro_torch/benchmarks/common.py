@@ -13,7 +13,7 @@ On the card every mixed step launches the serving kernels a fixed
 number of times (B1 and B2's fused Q/K/V entry once per attention
 layer, B2's one-pair entry and B3 once per SSM layer): the port's
 counterpart of the reference's one device call per step, read from the
-wrappers' ``launches`` counters (:func:`launch_counts`,
+wrappers' ``launches`` counters (``kernels.launch_counts``,
 :func:`step_launches`).  The reference's ``recompiles == 0`` asserts
 return with the captured step (ROADMAP A8).
 
@@ -33,7 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.alora import (PAPER_ALORA_RANK, PAPER_LORA_RANK,
                                     AdapterSpec, Params,
                                     init_adapter_weights)
-from repro_torch.kernels import paged_attention, ragged_lora, ssd_chunk
+from repro_torch.kernels import launch_counts
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import init_params
 from repro_torch.serving import Engine, EngineConfig
@@ -143,17 +143,6 @@ def agreement(a, b) -> str:
 def results_path(name: str) -> str:
     os.makedirs(RESULTS, exist_ok=True)
     return os.path.join(RESULTS, name)
-
-
-# the serving kernels' wrappers, whose ``launches`` count their launches
-WRAPPERS = {"ragged_paged_attention": paged_attention.ragged_paged_attention,
-            "ragged_grouped_lora_qkv": ragged_lora.ragged_grouped_lora_qkv,
-            "ragged_grouped_lora": ragged_lora.ragged_grouped_lora,
-            "ragged_ssd_chunk_scan": ssd_chunk.ragged_ssd_chunk_scan}
-
-
-def launch_counts() -> Dict[str, int]:
-    return {k: fn.launches for k, fn in WRAPPERS.items()}
 
 
 def step_launches(eng, steps: int, before: Dict[str, int]

@@ -8,8 +8,8 @@ artifacts, last record per key wins).
 The dry run's records (``repro_torch.launch.dryrun``) carry no
 activation estimate: the temp column prints "–", and an args column
 gives the rank's argument bytes against the card's 80 GB.  A table
-whose artifact is absent prints nothing: the compiled-step audit waits
-for ``analysis_audit.jsonl``'s compiled-step records.
+whose artifact is absent prints nothing; the step audit's records come
+from ``python -m repro_torch.analysis`` (Pass A).
 """
 from __future__ import annotations
 
@@ -250,11 +250,10 @@ def trace_overhead_table(recs):
 
 
 def audit_table(recs):
-    """Compiled-step audit summary (the reference's ``python -m
-    repro.analysis`` appends
-    one record per config × mesh).  "donated HBM" is the pool footprint
-    XLA aliases in-place thanks to ``donate_argnums`` — without donation
-    that many bytes would be allocated a second time every step."""
+    """Step audit summary (``python -m repro_torch.analysis`` appends one
+    record per config × mesh).  "donated HBM" is the pool footprint the
+    step updates in place — rebuilt out of place, that many bytes would
+    be allocated a second time every step."""
     print("\n### Compiled-step invariant audit\n")
     print("| arch | mesh | status | donated outputs | donated HBM (KiB) "
           "| output HBM (KiB) | collectives | sync≡async |")

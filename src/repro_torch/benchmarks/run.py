@@ -1,8 +1,7 @@
 """Benchmark harness of the port — one section per paper table/figure,
-the reference's ``benchmarks/run.py`` without ``fig6`` (the prompt-length
-sweep: ROADMAP A16a); ``mixed_batch_tp`` is ``bench_mixed_batch --mesh
-model=2``; ``roofline`` prints the dry run's table
-(``repro_torch.launch.dryrun --all`` writes it).
+the reference's ``benchmarks/run.py``; ``mixed_batch_tp`` is
+``bench_mixed_batch --mesh model=2``; ``roofline`` prints the dry run's
+table (``repro_torch.launch.dryrun --all`` writes it).
 
 Prints ``name,us_per_call,derived`` CSV rows, then each section's wall
 time.
@@ -26,7 +25,8 @@ def sections() -> Dict[str, Callable]:
                                         bench_batch_size,
                                         bench_generation_length,
                                         bench_mixed_batch,
-                                        bench_multi_adapter)
+                                        bench_multi_adapter,
+                                        bench_prompt_length)
     from repro_torch.benchmarks import roofline
     from repro_torch.kernels import bench as bench_kernels
     return {
@@ -34,6 +34,7 @@ def sections() -> Dict[str, Callable]:
         # the same, plus the tensor-parallel leg on 2 ranks (model=2)
         "mixed_batch_tp": lambda device: bench_mixed_batch.run(
             device=device, mesh={"data": 1, "model": 2}),
+        "fig6": bench_prompt_length.run,       # prompt-length sweep (+fig12)
         "fig11": bench_adapter_base.run,       # adapter->base
         "fig10": bench_generation_length.run,  # generation-length sweep
         "fig8": bench_async.run,               # async Poisson (+fig9)

@@ -163,8 +163,8 @@ def serve_cases(rank, models: Dict[str, Tuple], cases: Sequence
     case's tokens, stats, launches, leaks and the rank's pool shapes.
     The workload "sublayers" returns :func:`sublayer_outputs` on the
     rank's slice instead (on the CPU)."""
-    from repro_torch.benchmarks.common import WRAPPERS, launch_counts
     from repro_torch.distributed.parallel import TensorParallel
+    from repro_torch.kernels import WRAPPERS, launch_counts
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serving import Engine, EngineConfig
     out: Dict[str, Any] = {}

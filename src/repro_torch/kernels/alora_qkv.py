@@ -208,7 +208,8 @@ def alora_qkv(x: torch.Tensor, w: torch.Tensor, a_stack: torch.Tensor,
     multiples of 8, rank at most 256.  On a CPU tensor the plain version
     does."""
     if x.device.type == "cpu":
-        return alora_qkv_ref(x, w, a_stack, b_stack, adapter_idx)
+        return build.run_plain("alora_qkv", alora_qkv_ref, x, w, a_stack,
+                               b_stack, adapter_idx)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     build.no_backward("alora_qkv", x, w, a_stack, b_stack)

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -146,6 +146,19 @@ def no_backward(name: str, *tensors: torch.Tensor) -> None:
             f"{name}: the CUDA kernel has no backward, and an input "
             "requires grad; run it under torch.no_grad() (the training "
             "step passes no adapters)")
+
+
+# the step recorder of ``analysis.step_trace`` while it records a step:
+# a plain version then enters the record as one call, as its kernel
+# launches once on the card
+plain_recorder: Optional[Callable] = None
+
+
+def run_plain(name: str, fn: Callable, *args, **kwargs):
+    """Run kernel ``name``'s plain version ``fn`` (the path of CPU
+    tensors), through the step recorder when one is recording."""
+    rec = plain_recorder
+    return fn(*args, **kwargs) if rec is None else rec(name, fn, args, kwargs)
 
 
 def check(err: int, name: str) -> None:

@@ -203,8 +203,9 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     the kernel runs (rows with ``q_lens == 0`` come back as zeros); on a
     CPU tensor the plain version does."""
     if q.device.type == "cpu":
-        return ragged_paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                          req_rows, q_lens, window=window)
+        return build.run_plain("ragged_paged_attention",
+                               ragged_paged_attention_ref, q, k_pool, v_pool,
+                               block_tables, req_rows, q_lens, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     p = _check(q, k_pool, v_pool, block_tables, req_rows=req_rows,
@@ -227,8 +228,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with ``lengths == 0`` come back as zeros) and reads no block past a
     sequence's length; on a CPU tensor the plain version does."""
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
-                                   window=window)
+        return build.run_plain("paged_attention", paged_attention_ref, q,
+                               k_pool, v_pool, block_tables, lengths,
+                               window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     p = _check(q, k_pool, v_pool, block_tables, lengths=lengths)

@@ -204,8 +204,8 @@ def ragged_grouped_lora(x: torch.Tensor, a_stack: torch.Tensor,
     dtype (as the TPU kernel does), the expand accumulated in fp32 and
     rounded once."""
     if x.device.type == "cpu":
-        return ragged_grouped_lora_ref(x, a_stack, b_stack, adapter_idx,
-                                       active_slots)
+        return build.run_plain("ragged_grouped_lora", ragged_grouped_lora_ref,
+                               x, a_stack, b_stack, adapter_idx, active_slots)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     build.no_backward("ragged_grouped_lora", x, a_stack, b_stack)
@@ -231,8 +231,8 @@ def ragged_grouped_lora_qkv(x: torch.Tensor, q: Pair, k: Pair, v: Pair,
     runs once per pair."""
     pairs = (q, k, v)
     if x.device.type == "cpu":
-        return tuple(ragged_grouped_lora_ref(x, a, b, adapter_idx,
-                                             active_slots) for a, b in pairs)
+        return build.run_plain("ragged_grouped_lora_qkv", _qkv_ref, x, pairs,
+                               adapter_idx, active_slots)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     build.no_backward("ragged_grouped_lora_qkv", x,
@@ -244,3 +244,8 @@ def ragged_grouped_lora_qkv(x: torch.Tensor, q: Pair, k: Pair, v: Pair,
 
 
 ragged_grouped_lora_qkv.launches = 0
+
+
+def _qkv_ref(x, pairs: Sequence[Pair], adapter_idx, active_slots):
+    return tuple(ragged_grouped_lora_ref(x, a, b, adapter_idx, active_slots)
+                 for a, b in pairs)

@@ -165,9 +165,9 @@ def ragged_ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     caller's error, not checked on the card (that would read device
     data): the CPU path raises, the kernel writes zeros to its row."""
     if x.device.type == "cpu":
-        y, states = ragged_ssd_scan_ref(x, B, C, dA, dt, seg_starts,
-                                        slot_rows, init_states)
-        return y, states.index_select(0, out_rows.long())
+        return build.run_plain("ragged_ssd_chunk_scan", _kept_ref, x, B, C,
+                               dA, dt, seg_starts, slot_rows, init_states,
+                               out_rows)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out = _launch(x, B, C, dA, dt, seg_starts, slot_rows, init_states,
@@ -178,6 +178,13 @@ def ragged_ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 
 
 ragged_ssd_chunk_scan.launches = 0
+
+
+def _kept_ref(x, B, C, dA, dt, seg_starts, slot_rows, init_states, out_rows):
+    """The plain scan with its states gathered at ``out_rows``."""
+    y, states = ragged_ssd_scan_ref(x, B, C, dA, dt, seg_starts, slot_rows,
+                                    init_states)
+    return y, states.index_select(0, out_rows.long())
 
 
 def _launch(x, B, C, dA, dt, seg_starts, slot_rows, init_states, out_rows
@@ -290,7 +297,8 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     runs (float32 only; N in ``DENSE_N``, P a multiple of 8); on a CPU
     tensor the plain version does."""
     if x.device.type == "cpu":
-        return ssd_chunk_ref(x, B, C, dA, dt)
+        return build.run_plain("ssd_chunk_scan", ssd_chunk_ref, x, B, C, dA,
+                               dt)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     build.no_backward("ssd_chunk_scan", x, B, C, dA, dt)

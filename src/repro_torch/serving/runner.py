@@ -13,7 +13,8 @@ singletons and prefill chunks packed along one token axis):
      rows are written into the paged pools in place; ragged paged
      attention over each token's own request's blocks; ``out_project``;
      on an encoder-decoder, cross-attention of every row over its own
-     request's encoder K/V; then the MLP (or MoE) sublayer;
+     request's encoder K/V (read in place over every run slot, so the
+     shapes are the bucket's); then the MLP (or MoE) sublayer;
   4. per SSM layer: rmsnorm → ``ssd_ragged_forward``: the input
      projection with its adapter delta, the ragged causal conv and the
      ragged SSD scan, each request's live state gathered at its segment
@@ -424,11 +425,7 @@ class ModelRunner:
         C = 0 if mb.snap_rows is None else len(mb.snap_rows)
         dump_block = rc.num_blocks - 1
         dump_slot = rc.max_running - 1
-        Tb = next_pow2(max(T, 1), lo=self._tok_bucket_lo)
-        Rb = next_pow2(max(R, 1))
-        Cb = next_pow2(max(C, 1))
-        nbb = next_pow2(max(max((len(t) for t in mb.block_tables),
-                                default=1), 1))
+        Tb, Rb, Cb, nbb, Kb, *xb = self.buckets(mb)
         take = self.host_bufs.take
         tok = take("tok", Tb, np.int32)
         tok[:T] = mb.tok_ids
@@ -472,20 +469,15 @@ class ModelRunner:
         # active adapter slots, pow2-bucketed; padding entries are slot 0
         acts = mb.active_slots if mb.active_slots is not None \
             else np.zeros((0,), np.int32)
-        act = take("act", next_pow2(max(len(acts), 1)), np.int32)
+        act = take("act", Kb, np.int32)
         act[:len(acts)] = acts
-        cross = None
-        if self.cfg.is_encoder_decoder:
-            # cross-attention reads the encoder pools' run slots lo..hi-1
-            # in place; row t's query cell is (its slot - lo, its offset
-            # in its segment), padded rows share a spare last column
-            lo = int(run_slots[:R].min())
-            n_cols = next_pow2(int(np.bincount(rows[:T]).max())) + 1
-            xr = take("xr", Tb, np.int32)
-            xr[:T] = tok_slots[:T] - lo
-            xc = take("xc", Tb, np.int32, fill=n_cols - 1)
+        if xb:
+            # cross-attention reads every run slot of the encoder pools in
+            # place, so its shapes are the bucket's whatever slots run;
+            # row t's query cell is (its run slot, its offset in its
+            # segment), padded rows share a spare last column
+            xc = take("xc", Tb, np.int32, fill=xb[0] - 1)
             xc[:T] = cols[:T]
-            cross = (xr, xc, lo, int(run_slots[:R].max()) + 1 - lo, n_cols)
         self.t_assembly += time.perf_counter() - t_host
 
         def upload(a):
@@ -494,9 +486,29 @@ class ModelRunner:
         meta = tuple(map(upload, (tok, emb, use, fb, pos, qln, ad, act, bt,
                                   rows, cols, wb, wo, out_rows, run_slots,
                                   tok_slots, snap)))
-        if cross is not None:
-            cross = (upload(cross[0]), upload(cross[1])) + cross[2:]
+        cross = None
+        if xb:
+            cross = (meta[15], upload(xc), 0, rc.max_running, xb[0])
         return meta, cross
+
+    def buckets(self, mb: MixedBatch) -> Tuple[int, ...]:
+        """The pow2 buckets :meth:`_assemble_mixed` pads ``mb`` into:
+        tokens, requests, snapshot rows, block-table width and active
+        adapter slots; on an encoder-decoder also the cross-attention's
+        query columns a run slot (the pow2 of a request's most tokens,
+        plus the spare column of the padded rows)."""
+        acts = 0 if mb.active_slots is None else len(mb.active_slots)
+        snaps = 0 if mb.snap_rows is None else len(mb.snap_rows)
+        width = max((len(t) for t in mb.block_tables), default=1)
+        out = (next_pow2(max(len(mb.tok_ids), 1), lo=self._tok_bucket_lo),
+               next_pow2(max(len(mb.block_tables), 1)),
+               next_pow2(max(snaps, 1)), next_pow2(max(width, 1)),
+               next_pow2(max(acts, 1)))
+        if self.cfg.is_encoder_decoder:
+            per = np.bincount(np.asarray(mb.req_rows)).max() \
+                if len(mb.req_rows) else 1
+            out += (next_pow2(int(per)) + 1,)
+        return out
 
     def _mixed_impl(self, tok, emb, use, fb, pos, qln, ad, act, bt, rows,
                     cols, wb, wo, out_rows, run_slots, tok_slots, snap, *,
@@ -585,6 +597,34 @@ class ModelRunner:
         log_d2h(self.d2h_fetches, int(ids.size), str(ids.dtype), "step",
                 self.tracer)
         return ids[:handle.n_requests]
+
+    @torch.no_grad()
+    def trace_mixed(self, mb: MixedBatch):
+        """Record one mixed step of ``mb`` for the step audit (Pass A,
+        ``analysis.step_audit``) and return its
+        ``analysis.step_trace.StepTrace``, leaving the runner's state as
+        it was: the same :meth:`_assemble_mixed` and :meth:`_mixed_impl`
+        that :meth:`submit_batch` runs, on clones of the state the step
+        updates in place (a past batch's blocks may have been reused
+        since).  On a card the assembly and the step run under
+        ``torch.cuda.set_sync_debug_mode("error")`` (but on a rank of a
+        gloo world, whose collectives synchronise by design).  Call it
+        with no step in flight."""
+        from repro_torch.analysis.step_trace import IN_PLACE, StepRecording
+        saved = {n: getattr(self, n) for n in IN_PLACE
+                 if getattr(self, n) is not None}
+        try:
+            for n, t in saved.items():
+                setattr(self, n, t.clone())
+            with StepRecording(self, self.buckets(mb)) as rec:
+                meta, cross = self._assemble_mixed(mb)
+                with rec.recorder:
+                    rec.returned(self._mixed_impl(*meta, cross=cross))
+                rec.uploaded(meta, cross)
+            return rec.trace
+        finally:
+            for n, t in saved.items():
+                setattr(self, n, t)
 
     def execute_batch(self, mb: MixedBatch) -> np.ndarray:
         """Synchronous submit + fetch; returns the sampled ids (R,)."""

@@ -540,7 +540,7 @@ def test_real_tree_tables_name_port_functions():
 # ---------------------------------------------------------------- CLI
 def test_cli_clean_tree_exit0(tmp_path, capsys):
     (tmp_path / "analysis_lifecycle.txt").write_text("stale\n")
-    assert main(["--json", "--out", str(tmp_path)]) == 0
+    assert main(["--skip-audit", "--json", "--out", str(tmp_path)]) == 0
     assert "[lint] 0 violation(s)" in capsys.readouterr().out
     with open(tmp_path / "analysis_audit.jsonl") as f:
         recs = [json.loads(line) for line in f]
@@ -551,7 +551,8 @@ def test_cli_clean_tree_exit0(tmp_path, capsys):
 
 def test_cli_fixture_exit1(tmp_path, capsys):
     bad = _write(tmp_path, "leak.py", LC_PLAIN_LEAK)
-    assert main(["--out", str(tmp_path), "--lint-paths", bad]) == 1
+    assert main(["--skip-audit", "--out", str(tmp_path), "--lint-paths",
+                 bad]) == 1
     err = capsys.readouterr().err
     # the fixture defines none of the default tables' functions
     assert "leak" in err and "phase-table" in err

@@ -21,7 +21,8 @@ from repro.serving import pipelines as JP
 from repro_torch.benchmarks import (bench_adapter_base, bench_async,
                                     bench_batch_size,
                                     bench_generation_length,
-                                    bench_multi_adapter, common, run)
+                                    bench_multi_adapter,
+                                    bench_prompt_length, common, run)
 from repro_torch.configs import get_reduced
 from repro_torch.models.convert import adapters_from_jax, params_from_jax
 
@@ -80,6 +81,26 @@ def test_fig11_adapter_base():
         "cache_hit_frac"] > 0
     # only the aLoRA adapter's pre-activation blocks serve the base
     assert rows[f"fig11/base-after-adapter/lora/prompt{plen}"]["hit"] == 0
+
+
+def test_fig6_prompt_length():
+    rows = bench_prompt_length.run(smoke=True, device="cpu")
+    plen = bench_prompt_length.PROMPT_LENS[0]
+    for kind in ("lora", "alora"):
+        jeng = RC.make_engine(kind)
+        jres = JP.base_adapter(jeng, adapter_names=["ad0"], prompt_len=plen,
+                               gen_len=bench_prompt_length.GEN_LEN,
+                               eval_len=bench_prompt_length.EVAL_LEN,
+                               batch=2, seed=plen)
+        row = rows[f"fig6/eval/{kind}/prompt{plen}"]
+        same(row, ref_stage(jeng, jres.eval_ids))
+        assert row["hit"] == jres.stage_metrics(jeng, "eval").means[
+            "cache_hit_frac"]
+    # only aLoRA evals reuse the base request's prefix
+    assert min(rows[f"fig6/eval/alora/prompt{plen}"]["hits"]) > 0
+    lora = rows[f"fig6/eval/lora/prompt{plen}"]
+    assert lora["hits"] == [0, 0] and lora["hit"] == 0
+    assert f"fig6/speedup/prompt{plen}" in rows
 
 
 def test_fig15_batch_size():
@@ -149,11 +170,11 @@ def test_run_sections(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,us_per_call,derived"
     assert out[-1].startswith("section/fig15/wall_s,")
-    assert set(run.sections()) == {"mixed_batch", "mixed_batch_tp", "fig11",
-                                   "fig10", "fig8", "sec441", "fig15",
-                                   "kernels", "roofline"}
+    assert set(run.sections()) == {"mixed_batch", "mixed_batch_tp", "fig6",
+                                   "fig11", "fig10", "fig8", "sec441",
+                                   "fig15", "kernels", "roofline"}
     with pytest.raises(SystemExit):
-        run.main(["fig6"])
+        run.main(["fig7"])
 
 
 def test_benches_default_to_the_card(monkeypatch):

@@ -37,6 +37,8 @@ NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.analysis", "repro_torch.analysis.__main__",
                "repro_torch.analysis.hotpath_lint",
                "repro_torch.analysis.lifecycle_check",
+               "repro_torch.analysis.step_audit",
+               "repro_torch.analysis.step_trace",
                "repro_torch.benchmarks", "repro_torch.benchmarks.common",
                "repro_torch.benchmarks.bench_adapter_base",
                "repro_torch.benchmarks.bench_async",
@@ -44,6 +46,7 @@ NEW_MODULES = ("repro_torch.configs.mamba2_2_7b",
                "repro_torch.benchmarks.bench_generation_length",
                "repro_torch.benchmarks.bench_mixed_batch",
                "repro_torch.benchmarks.bench_multi_adapter",
+               "repro_torch.benchmarks.bench_prompt_length",
                "repro_torch.benchmarks.bench_router",
                "repro_torch.benchmarks.run", "repro_torch.examples",
                "repro_torch.examples.quickstart",
