@@ -1847,8 +1847,9 @@ def serve_pipeline(torch, eng, cfg, pipe, min_hits):
               f"encoder K/V copies per step; pools "
               f"{eng.runner.xk_pool.numel() * 8 / 1e9:.2f} GB", flush=True)
     phases = {}
-    for kind, track, _, t0_, t1_, _, _ in eng.tracer.events:
-        if kind == "span":
+    for kind, track, name, t0_, t1_, _, _ in eng.tracer.events:
+        # the phase spans alone (the spans inside them share their tracks)
+        if kind == "span" and name == track:
             phases.setdefault(track, []).append((t1_ - t0_) * 1e3)
     phase_ms = {k: statistics.mean(v) for k, v in phases.items()}
     print("  mean host ms per phase: " + ", ".join(

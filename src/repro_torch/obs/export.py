@@ -12,7 +12,9 @@ Three formats:
   the wall-clock timebase, one process per replica for request
   lifecycles (queue → prefill → decode spans per request) on the
   virtual-clock timebase, and one process for the router's placement
-  decisions.
+  decisions.  A port ring whose request summaries carry the wall stamps
+  (``t_submit_wall`` …) draws its lifecycles on the wall clock instead,
+  in line with the step phases.
 * **Prometheus text** (``prometheus_text``): a counters snapshot in the
   text exposition format, one ``repro_*`` counter family per
   ``Tracer.counters`` key with a ``replica`` label — what
@@ -21,7 +23,9 @@ Three formats:
   and counter as a flat dict.
 
 The output equals the reference's on the same rings: the same PID/TID
-layout, counter family names and ``replica`` labels.
+layout, counter family names and ``replica`` labels.  Rings without wall
+stamps, the reference's among them, render exactly as the reference
+renders them.
 """
 from __future__ import annotations
 
@@ -61,6 +65,32 @@ def _meta(pid: int, name: str, tid: Optional[int] = None,
     return out
 
 
+def _wall_ring(tr: Tracer) -> bool:
+    """Whether ``tr``'s request summaries carry the port's wall stamps."""
+    return any(kind == "request" and (args or {}).get("t_submit_wall")
+               is not None for kind, _, _, _, _, _, args in tr.events)
+
+
+def _ledger_marks(tr: Tracer, wall: bool) -> List[Tuple[Tuple, float]]:
+    """Each ledger row with the time of its ``admit`` mark: its virtual
+    clock, or on a wall ring the end of the ``admit`` span of the same
+    admission.  The rings trim their oldest records apart, so a
+    request's rows pair with its successful admissions from the newest
+    back; a row whose span is gone is not drawn."""
+    if not wall:
+        return [(row, row[5]) for row in tr.ledger]
+    ends: Dict[int, List[float]] = {}
+    for kind, _, name, _, t1, _, a in tr.events:
+        if kind == "span" and name == "admit" and a and a.get("ok"):
+            ends.setdefault(a["req_id"], []).append(t1)
+    marks = []
+    for row in reversed(tr.ledger):
+        left = ends.get(row[0])
+        if left:
+            marks.append((row, left.pop()))
+    return marks[::-1]
+
+
 def to_perfetto(tracers: Sequence[Tracer]) -> Dict[str, Any]:
     """Chrome-trace/Perfetto JSON for a set of tracers (one per replica,
     plus optionally the router's)."""
@@ -73,28 +103,30 @@ def to_perfetto(tracers: Sequence[Tracer]) -> Dict[str, Any]:
             pid_phase = PID_PHASE + tr.replica
             ev += _meta(pid_phase, f"replica {tr.replica} · step phases")
         pid_life = PID_LIFECYCLE + max(tr.replica, 0)
+        wall = _wall_ring(tr)
+        life_name = f"replica {max(tr.replica, 0)} · requests " \
+            f"({'wall' if wall else 'virtual'} clock)"
+        # the summary's bounds of queue → prefill → decode
+        stamps = ("t_submit_wall", "t_admit_wall", "t_first_token_wall",
+                  "t_done_wall") if wall \
+            else ("arrival", "t_prefill_start", "t_decode_start", "t_done")
         named_tids = set()
         life_named = False
         for kind, track, name, t0, t1, vclock, args in tr.events:
             if kind == "request":
                 # expand the lifecycle summary into queue/prefill/decode
-                # spans on the virtual-clock request process
+                # spans on the request process
                 if not life_named:
-                    ev += _meta(pid_life,
-                                f"replica {max(tr.replica, 0)} · requests "
-                                "(virtual clock)")
+                    ev += _meta(pid_life, life_name)
                     life_named = True
                 a = args or {}
                 rid = int(a.get("req_id", 0))
                 tid = rid + 1
                 ev += _meta(pid_life, "", tid,
                             f"req {rid} [{a.get('adapter_uid') or 'base'}]")
-                bounds = [("queue", a.get("arrival"),
-                           a.get("t_prefill_start")),
-                          ("prefill", a.get("t_prefill_start"),
-                           a.get("t_decode_start")),
-                          ("decode", a.get("t_decode_start"),
-                           a.get("t_done"))]
+                bounds = [(sname, a.get(lo), a.get(hi)) for sname, lo, hi
+                          in zip(("queue", "prefill", "decode"), stamps,
+                                 stamps[1:])]
                 for sname, lo, hi in bounds:
                     if lo is None or hi is None:
                         continue
@@ -104,18 +136,16 @@ def to_perfetto(tracers: Sequence[Tracer]) -> Dict[str, Any]:
                                "args": a})
                 continue
             if track == "lifecycle":
-                # arrival marks etc.: virtual-clock instants on the
-                # request process, threaded by request id
+                # arrival marks etc.: instants on the request process,
+                # threaded by request id
                 if not life_named:
-                    ev += _meta(pid_life,
-                                f"replica {max(tr.replica, 0)} · requests "
-                                "(virtual clock)")
+                    ev += _meta(pid_life, life_name)
                     life_named = True
                 a = args or {}
                 ev.append({"name": name, "ph": "i", "s": "t",
                            "pid": pid_life,
                            "tid": int(a.get("req_id", 0)) + 1,
-                           "ts": _us(vclock), "args": a})
+                           "ts": _us(t0 if wall else vclock), "args": a})
                 continue
             tid = TRACK_TIDS.get(track, 9)
             if tid not in named_tids:
@@ -135,16 +165,15 @@ def to_perfetto(tracers: Sequence[Tracer]) -> Dict[str, Any]:
                 rec["s"] = "t"
             ev.append(rec)
         # ledger rows: instant "admit" marks on the request timeline at
-        # their virtual-clock admission time (the cache-probe verdict)
-        for req_id, uid, reused, recomp, state_reused, vclock in tr.ledger:
+        # their admission time (the cache-probe verdict)
+        for (req_id, uid, reused, recomp, state_reused, _), ts \
+                in _ledger_marks(tr, wall):
             if not life_named:
-                ev += _meta(pid_life,
-                            f"replica {max(tr.replica, 0)} · requests "
-                            "(virtual clock)")
+                ev += _meta(pid_life, life_name)
                 life_named = True
             ev.append({"name": "admit", "ph": "i", "s": "t",
                        "pid": pid_life, "tid": req_id + 1,
-                       "ts": _us(vclock),
+                       "ts": _us(ts),
                        "args": {"adapter_uid": uid, "reused": reused,
                                 "recomputed": recomp,
                                 "state_reused": state_reused}})

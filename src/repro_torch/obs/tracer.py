@@ -11,6 +11,12 @@ Two timestamps ride every record: ``t0``/``t1`` are host wall time
 (``time.perf_counter()`` seconds) and ``vclock`` is the engine's virtual
 clock at record time (``None`` where no clock exists).
 
+Beside the reference's records the port records ``PORT_SPANS``: spans
+inside the schedule, submit and retire phases, each carrying the
+engine's step number (``Tracer.step``) as ``step`` in its args; and a
+request's lifecycle stamped on the wall clock too (the ``*_wall``
+fields of ``request_summary``).
+
 The event and ledger rings trim their oldest half in bulk at
 ``TRACE_RING_MAX``; ``Tracer.dropped`` counts what the trim discarded.
 ``REPRO_TRACE=0`` disables recording at construction;
@@ -32,6 +38,14 @@ LEDGER_FIELDS = ("req_id", "adapter_uid", "reused", "recomputed",
                  "state_reused", "vclock")
 # track vocabulary (one Perfetto thread per track)
 TRACKS = ("schedule", "submit", "retire", "pool", "router", "lifecycle")
+# spans the port records inside the phases and the reference does not:
+# an admission attempt and its prompt-embedding copy (schedule); the
+# engine's packing, the runner's bucket padding, its uploads and the
+# step's eager launch (submit); the sampled-ids fetch and the
+# bookkeeping after it (retire)
+PORT_SPANS = ("admit", "admit.embed_copy", "submit.pack", "submit.pad",
+              "submit.upload", "submit.enqueue", "retire.fetch",
+              "retire.book")
 
 EventRec = Tuple[str, str, str, float, float, Optional[float],
                  Optional[Dict[str, Any]]]
@@ -54,6 +68,9 @@ class Tracer:
         self.ledger: List[LedgerRec] = []
         self.counters: Dict[str, float] = {}
         self.dropped = 0
+        # the engine's step number, advanced by the engine while enabled;
+        # the port's phase spans carry it as ``step``
+        self.step = 0
 
     def set_replica(self, replica: int) -> None:
         """Stamp this tracer's fleet position (the router assigns these
@@ -112,16 +129,23 @@ class Tracer:
                         arrival: float, t_prefill_start: Optional[float],
                         t_decode_start: Optional[float], t_done: float,
                         prompt_len: int, output_len: int,
-                        cache_hit_tokens: int) -> None:
-        """The lifecycle of a finished request, in virtual-clock seconds."""
+                        cache_hit_tokens: int,
+                        wall: Optional[Dict[str, Optional[float]]] = None
+                        ) -> None:
+        """The lifecycle of a finished request, in virtual-clock seconds;
+        ``wall``: the same request's ``t_submit_wall``, ``t_admit_wall``,
+        ``t_first_token_wall`` and ``t_done_wall`` (``time.perf_counter()``
+        seconds), merged into the args."""
         if not self.enabled:
             return
         t = time.perf_counter()
-        self._append(self.events, (
-            "request", "lifecycle", "request", t, t, t_done,
-            {"req_id": req_id, "adapter_uid": adapter_uid,
-             "arrival": arrival, "t_prefill_start": t_prefill_start,
-             "t_decode_start": t_decode_start, "t_done": t_done,
-             "prompt_len": prompt_len, "output_len": output_len,
-             "cache_hit_tokens": cache_hit_tokens}))
+        args = {"req_id": req_id, "adapter_uid": adapter_uid,
+                "arrival": arrival, "t_prefill_start": t_prefill_start,
+                "t_decode_start": t_decode_start, "t_done": t_done,
+                "prompt_len": prompt_len, "output_len": output_len,
+                "cache_hit_tokens": cache_hit_tokens}
+        if wall:
+            args.update(wall)
+        self._append(self.events, ("request", "lifecycle", "request", t, t,
+                                   t_done, args))
         self.count("requests_finished_total")

@@ -326,6 +326,7 @@ class Engine:
                 self.pending = deque(sorted(
                     self.pending, key=lambda r: r.arrival_time))
         if self.tracer.enabled:
+            req.t_submit_wall = time.perf_counter()
             self.tracer.event("lifecycle", "arrival", req.arrival_time,
                               {"req_id": req.req_id,
                                "prompt_len": len(req.prompt),
@@ -336,12 +337,33 @@ class Engine:
     # admission: prefix-cache match + block allocation
     # ------------------------------------------------------------------
     def _try_admit(self, req: Request) -> bool:
+        """One admission attempt, traced as an ``admit`` span; the first
+        that succeeds stamps the request's ``t_admit_wall``."""
+        tr = self.tracer
+        if not tr.enabled:
+            return self._admit(req) is not None
+        t0 = time.perf_counter()
+        got = self._admit(req)
+        t1 = time.perf_counter()
+        if got is not None and req.t_admit_wall is None:
+            req.t_admit_wall = t1
+        reused, new_blocks = got or (0, 0)
+        tr.span("schedule", "admit", t0, t1, self.clock,
+                {"req_id": req.req_id, "ok": got is not None,
+                 "reused": reused, "new_blocks": new_blocks,
+                 "step": tr.step})
+        return got is not None
+
+    def _admit(self, req: Request) -> Optional[Tuple[int, int]]:
+        """Admit ``req`` if its blocks, adapter slot and run slot can be
+        had: returns (prompt tokens reused, blocks newly allocated), or
+        None with everything it took returned."""
         bs = self.ecfg.block_size
         n_prompt = len(req.prompt)
         # every request pins a run slot: the device token buffer is
         # addressed through it
         if not self._free_slots:
-            return False
+            return None
         adapter_pinned = False
         # match against prompt[:-1]: the last prompt token is always
         # recomputed to produce the first token's logits, so the reuse
@@ -358,7 +380,7 @@ class Engine:
         n_new = (n_prompt + bs - 1) // bs - len(kv_blocks)
         new_blocks: List[int] = []
 
-        def bail() -> bool:
+        def bail() -> None:
             # one cleanup for every failure path: return the matched and
             # freshly allocated blocks, the state-snapshot reference and
             # the adapter-slot pin
@@ -369,7 +391,7 @@ class Engine:
             if adapter_pinned:
                 self.adapter_pool.release(req.adapter_uid)
                 req.adapter_slot = 0
-            return False
+            return None
 
         if self.kv_mgr is not None:
             if self.kv_mgr.num_free() < n_new:
@@ -400,21 +422,30 @@ class Engine:
                 self.st_mgr.release(state_slot)   # copied into live state
             else:
                 self.runner.reset_live(req.run_slot)
-        if self.tracer.enabled:
-            self.tracer.ledger_entry(req.req_id, req.adapter_uid, n_reuse,
-                                     n_prompt - n_reuse, req.state_reused,
-                                     self.clock)
+        tr = self.tracer
+        if tr.enabled:
+            tr.ledger_entry(req.req_id, req.adapter_uid, n_reuse,
+                            n_prompt - n_reuse, req.state_reused, self.clock)
+            t_copy = time.perf_counter()
         # prompt embeddings kept on the host, so each step's assembly
-        # packs rows with slice copies (one device→host copy, logged)
+        # packs rows with slice copies (one device→host copy, logged; it
+        # waits for the step in flight)
         req.input_embeds = self.runner.build_input_embeds(req.prompt,
                                                           req.prefix_embeds)
+        if tr.enabled:
+            # the copy moves the prompt's rows as float32
+            tr.span("schedule", "admit.embed_copy", t_copy,
+                    time.perf_counter(), self.clock,
+                    {"req_id": req.req_id,
+                     "bytes": 4 * len(req.prompt) * self.cfg.d_model,
+                     "step": tr.step})
         if self.cfg.is_encoder_decoder:
             # into the run slot's encoder K/V, which the slot's next
             # admission overwrites: a preempted request is re-encoded
             self.runner.encode(req.frame_embeds, req.run_slot)
         req.state = State.PREFILL
         self.running.append(req)
-        return True
+        return n_reuse, len(new_blocks)
 
     # ------------------------------------------------------------------
     # adapter-aware admission (EngineConfig.admission_policy="affinity")
@@ -501,6 +532,8 @@ class Engine:
         prev = self._inflight
         self._inflight = None
         tr = self.tracer
+        if tr.enabled:
+            tr.step += 1
         t_sched0 = time.perf_counter()
 
         # ---- schedule ------------------------------------------------
@@ -736,6 +769,9 @@ class Engine:
             r.t_decode_start = self.clock
         if patch_idx is not None:
             r.output_tokens[patch_idx] = int(np.argmax(logits_row))
+            if patch_idx == 0 and self.tracer.enabled \
+                    and r.t_first_token_wall is None:
+                r.t_first_token_wall = time.perf_counter()
 
     def _adapter_idx(self, r: Request, positions: np.ndarray) -> np.ndarray:
         return adapter_index_for_positions(
@@ -864,7 +900,12 @@ class Engine:
                         run_slots=run_slots,
                         snap_rows=np.array(snap_rows, np.int32),
                         active_slots=np.array(active, np.int32))
-        self.t_assembly += time.perf_counter() - t_host
+        t1 = time.perf_counter()
+        self.t_assembly += t1 - t_host
+        tr = self.tracer
+        if tr.enabled:
+            tr.span("submit", "submit.pack", t_host, t1, self.clock,
+                    {"T": T, "R": R, "step": tr.step})
         t0 = time.perf_counter()
         handle = self.runner.submit_batch(mb)   # enqueued, not awaited
         self._advance_clock(t0)
@@ -902,6 +943,11 @@ class Engine:
         t0 = time.perf_counter()
         sampled = self.runner.fetch_sampled(inf.handle)
         self._advance_clock(t0)
+        tr = self.tracer
+        if tr.enabled:
+            # the sampled ids are on the host from here: the first token
+            # of a request whose prefill ended in this step arrives now
+            t_book = time.perf_counter()
         for r, epoch, row, patch_idx, bpos, slot in inf.retires:
             if r.epoch != epoch:
                 if slot is not None:
@@ -913,9 +959,16 @@ class Engine:
                 r.t_decode_start = self.clock
             if patch_idx is not None:
                 r.output_tokens[patch_idx] = int(sampled[row])
+                if patch_idx == 0 and tr.enabled \
+                        and r.t_first_token_wall is None:
+                    r.t_first_token_wall = t_book
             if bpos is not None:
                 self._register_decode_block(r, bpos, slot)
         self._finish_requests()
+        if tr.enabled:
+            tr.span("retire", "retire.book", t_book, time.perf_counter(),
+                    self.clock, {"rows": len(inf.retires),
+                                 "step": inf.handle.step})
 
     # ------------------------------------------------------------------
     def _adopt_canonical(self, r: Request, b: int, h) -> None:
@@ -988,11 +1041,16 @@ class Engine:
                 r.state = State.DONE
                 r.t_done = self.clock
                 if self.tracer.enabled:
+                    r.t_done_wall = time.perf_counter()
                     self.tracer.request_summary(
                         r.req_id, r.adapter_uid, r.arrival_time,
                         r.t_prefill_start, r.t_decode_start, r.t_done,
                         len(r.prompt), len(r.output_tokens),
-                        r.n_cache_hit_tokens)
+                        r.n_cache_hit_tokens,
+                        wall={"t_submit_wall": r.t_submit_wall,
+                              "t_admit_wall": r.t_admit_wall,
+                              "t_first_token_wall": r.t_first_token_wall,
+                              "t_done_wall": r.t_done_wall})
                 if self.kv_mgr is not None:
                     self.kv_mgr.release_all(r.block_ids)
                 if r.run_slot >= 0:

@@ -48,6 +48,14 @@ class Request:
     t_prefill_start: Optional[float] = None
     t_decode_start: Optional[float] = None
     t_done: Optional[float] = None
+    # the same lifecycle on the host's wall clock (``time.perf_counter()``
+    # seconds), stamped only while the engine traces: submission, first
+    # admission (a preempted request keeps it), the first token's value
+    # reaching the host, and done
+    t_submit_wall: Optional[float] = None
+    t_admit_wall: Optional[float] = None
+    t_first_token_wall: Optional[float] = None
+    t_done_wall: Optional[float] = None
     output_tokens: List[int] = field(default_factory=list)
     inv_start: int = 0                      # activation point (aLoRA)
     # bumped on every preemption; rows of an unretired step carry the

@@ -183,10 +183,13 @@ class StepHandle:
     tensor of sampled ids, ``n_requests`` the real row count, and
     ``boundary`` None for attention-only stacks, else the pair
     ``(b_ssm (Ls, Cb, nh, N, P) float32, b_conv (Ls, Cb, W-1, ch))`` of
-    post-token states at the batch's ``snap_rows``, in their order."""
+    post-token states at the batch's ``snap_rows``, in their order;
+    ``step`` the engine's step number that submitted it
+    (``Tracer.step``), which its retire spans carry."""
     sampled: torch.Tensor
     n_requests: int
     boundary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    step: int = 0
 
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
@@ -478,17 +481,28 @@ class ModelRunner:
             # segment), padded rows share a spare last column
             xc = take("xc", Tb, np.int32, fill=xb[0] - 1)
             xc[:T] = cols[:T]
-        self.t_assembly += time.perf_counter() - t_host
+        t1 = time.perf_counter()
+        self.t_assembly += t1 - t_host
+        tr = self.tracer
+        if tr.enabled:
+            tr.span("submit", "submit.pad", t_host, t1, None,
+                    {"buckets": (Tb, Rb, Cb, nbb, Kb, *xb), "step": tr.step})
+            t_up = time.perf_counter()
 
         def upload(a):
             return torch.from_numpy(a).to(self.device, non_blocking=True)
 
-        meta = tuple(map(upload, (tok, emb, use, fb, pos, qln, ad, act, bt,
-                                  rows, cols, wb, wo, out_rows, run_slots,
-                                  tok_slots, snap)))
+        staged = (tok, emb, use, fb, pos, qln, ad, act, bt, rows, cols, wb,
+                  wo, out_rows, run_slots, tok_slots, snap)
+        meta = tuple(map(upload, staged))
         cross = None
         if xb:
             cross = (meta[15], upload(xc), 0, rc.max_running, xb[0])
+            staged += (xc,)
+        if tr.enabled:
+            tr.span("submit", "submit.upload", t_up, time.perf_counter(),
+                    None, {"bytes": sum(a.nbytes for a in staged),
+                           "step": tr.step})
         return meta, cross
 
     def buckets(self, mb: MixedBatch) -> Tuple[int, ...]:
@@ -586,14 +600,26 @@ class ModelRunner:
         handle with :meth:`fetch_sampled`."""
         meta, cross = self._assemble_mixed(mb)
         self.call_counts["mixed_step"] += 1
+        tr = self.tracer
+        if tr.enabled:
+            t0 = time.perf_counter()
         sampled, boundary = self._mixed_impl(*meta, cross=cross)
+        if tr.enabled:
+            tr.span("submit", "submit.enqueue", t0, time.perf_counter(),
+                    None, {"step": tr.step})
         return StepHandle(sampled=sampled, n_requests=len(mb.block_tables),
-                          boundary=boundary)
+                          boundary=boundary, step=tr.step)
 
     def fetch_sampled(self, handle: StepHandle) -> np.ndarray:
         """Wait for ``handle``'s step and return its sampled ids (R,)
         int32 — the mixed path's only per-step device→host transfer."""
+        tr = self.tracer
+        if tr.enabled:
+            t0 = time.perf_counter()
         ids = handle.sampled.cpu().numpy()
+        if tr.enabled:
+            tr.span("retire", "retire.fetch", t0, time.perf_counter(), None,
+                    {"rows": handle.n_requests, "step": handle.step})
         log_d2h(self.d2h_fetches, int(ids.size), str(ids.dtype), "step",
                 self.tracer)
         return ids[:handle.n_requests]
