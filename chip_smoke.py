@@ -35,8 +35,13 @@ Phases, each of which exits non-zero on failure:
    with the runner's kept rows; timed at T = 128 and T = 4), each time
    split by the profiler into the call's CUDA kernels, and attention timed
    again with one decode row's context at 8,000 tokens over a 512-block
-   table (the grid's splits and scratch at the engine's default pool);
-   ragged paged attention
+   table (the planner's cut pieces and scratch at the engine's default
+   pool); ragged paged attention at granite's serving bucket (T 2,048:
+   30 prefill runs of 64 rows at contexts to 6,144, 100 decode rows and
+   padded rows over a 512-block table; bf16, float32 and bf16 under a
+   4,096-token window) against the plain version taken one request at a
+   time, timed beside its bound with the planner's counts; ragged paged
+   attention
    on a batch that reaches every tile and split edge (contexts around a
    split boundary, a window across one, a prefill chunk longer than a
    query tile and off its grid, interleaved rows, padded rows sharing a
@@ -602,10 +607,11 @@ def time_attention(torch, F, timer, a, args, dtype_name, kernel, plain):
 def check_long_context(torch, F, timer, a, gen, ctx=8000, nbb=512):
     """The mixed batch ``a`` with request 0's decode row grown to a
     ``ctx``-token context over a table of ``nbb`` blocks, the engine's
-    default pool of 512: the table span, and so the grid's splits and the
-    fp32 split scratch, of a long context beside short ones (most blocks
-    of the grid exit at once).  Checked against the plain version and
-    timed; returns the times with the splits and the scratch's bytes."""
+    default pool of 512: a long context beside short ones, which the
+    planner cuts into pieces to fill the card.  Checked against the plain
+    version and timed; returns the times with the blocks launched beside
+    the replaced grid's, the planner's counts and the scratch's bytes."""
+    from repro_torch.kernels.bench import b1_counts
     from repro_torch.kernels.paged_attention import (
         plan, ragged_paged_attention, ragged_paged_attention_ref)
     bs = a["k_pool"].shape[1]
@@ -622,7 +628,10 @@ def check_long_context(torch, F, timer, a, gen, ctx=8000, nbb=512):
              q_lens=torch.tensor(lens, dtype=torch.int32, device="cuda"))
     args = (d["q"], d["k_pool"], d["v_pool"], d["block_tables"],
             d["req_rows"], d["q_lens"])
+    b1_counts()
     got = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    counts = b1_counts()
     want = ragged_paged_attention_ref(*args)
     torch.cuda.synchronize()
     _, _, row_rel = rel_err(got, want, slice(0, d["n_real"]))
@@ -631,18 +640,164 @@ def check_long_context(torch, F, timer, a, gen, ctx=8000, nbb=512):
              f"max|plain| > {TOL['bfloat16']}")
     del got, want
     q = d["q"]
-    p = plan(*q.shape[:2], d["k_pool"].shape[2], q.shape[2], bs, nbb)
+    hd = q.shape[2]
+    p = plan(*q.shape[:2], d["k_pool"].shape[2], hd, bs, nbb)
     res = time_attention(torch, F, timer, d, args, "bfloat16",
                          ragged_paged_attention, ragged_paged_attention_ref)
     res.update(context=ctx, table_blocks=nbb, row_rel_err=row_rel,
-               splits=p.grid[2], grid_blocks=p.grid[0] * p.grid[1]
-               * p.grid[2], scratch_bytes=4 * (p.partials[0] * p.partials[1]
-                                               * p.partials[2])
-               * (p.partials[3] + 2))
+               items=counts["b1_items"], cut_items=counts["b1_cut_items"],
+               grid_blocks=counts["b1_blocks"],
+               old_grid_blocks=counts["b1_old_blocks"],
+               scratch_bytes=4 * (p.partial_rows * (hd + 2) + p.work_ints))
     print(f"  ragged_paged_attention long context {ctx} over {nbb} blocks: "
-          f"row rel {row_rel:.3e}; {res['splits']} splits, "
-          f"{res['grid_blocks']} blocks, scratch "
+          f"row rel {row_rel:.3e}; {res['items']} items "
+          f"({res['cut_items']} cut), {res['grid_blocks']} blocks (the "
+          f"replaced grid: {res['old_grid_blocks']}), scratch "
           f"{res['scratch_bytes'] / 1e6:.1f} MB", flush=True)
+    return res
+
+
+def serving_batch(torch, dtype, gen, runs=30, decode=100, Tb=2048, nbb=512,
+                  max_ctx=6144, bs=16):
+    """granite's serving bucket of the mixed step (H 32, KV 8, hd 128):
+    ``runs`` 64-row prefill runs, each ending at a context drawn up to
+    ``max_ctx``, then ``decode`` decode rows at contexts up to ``max_ctx``,
+    then padded rows (q_lens 0) to ``Tb``, over a table of ``nbb`` blocks
+    (padding entries at the dump block).  30 runs and 100 decode rows
+    fill the 2,048 tokens a step takes (32 runs would leave no room)."""
+    H, KV, hd = 32, 8, 128
+    rows, lens, ctx = [], [], []
+    for r in range(runs):
+        end = int(torch.randint(64, max_ctx + 1, (), generator=gen))
+        rows += [r] * 64
+        lens += list(range(end - 63, end + 1))
+        ctx.append(end)
+    for r in range(runs, runs + decode):
+        c = int(torch.randint(1, max_ctx + 1, (), generator=gen))
+        rows.append(r)
+        lens.append(c)
+        ctx.append(c)
+    n_real = len(rows)
+    rows += [runs + decode - 1] * (Tb - n_real)
+    lens += [0] * (Tb - n_real)
+    nblk = [-(-c // bs) for c in ctx]
+    NB = sum(nblk) + 1
+    perm = torch.randperm(NB - 1, generator=gen).tolist()
+    bt = torch.full((len(ctx), nbb), NB - 1, dtype=torch.int32)
+    tables, used = [], 0
+    for r, n in enumerate(nblk):
+        tables.append(perm[used:used + n])
+        bt[r, :n] = torch.tensor(tables[-1], dtype=torch.int32)
+        used += n
+    dev = "cuda"
+    return dict(
+        q=torch.randn((Tb, H, hd), generator=gen).to(dev, dtype),
+        k_pool=torch.randn((NB, bs, KV, hd), generator=gen).to(dev, dtype),
+        v_pool=torch.randn((NB, bs, KV, hd), generator=gen).to(dev, dtype),
+        block_tables=bt.to(dev),
+        req_rows=torch.tensor(rows, dtype=torch.int32, device=dev),
+        q_lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+        n_real=n_real, tables=tables, lens=lens, rows=rows)
+
+
+def plain_by_request(torch, a, window):
+    """The plain version on ``a``'s live rows, one request at a time over
+    its own table's blocks (at a serving bucket the plain version's
+    per-row gather of the whole table would not fit the card)."""
+    from repro_torch.kernels.paged_attention import ragged_paged_attention_ref
+    bs = a["k_pool"].shape[1]
+    out = torch.zeros_like(a["q"])
+    rows = torch.tensor(a["rows"])
+    lens = torch.tensor(a["lens"])
+    for r in sorted(set(a["rows"][:a["n_real"]])):
+        idx = torch.nonzero((rows == r) & (lens > 0)).flatten()
+        if not len(idx):
+            continue
+        nbt = -(-int(lens[idx].max()) // bs)
+        dev_idx = idx.to("cuda")
+        out[dev_idx] = ragged_paged_attention_ref(
+            a["q"][dev_idx].contiguous(), a["k_pool"], a["v_pool"],
+            a["block_tables"][r:r + 1, :nbt].contiguous(),
+            torch.zeros(len(idx), dtype=torch.int32, device="cuda"),
+            a["q_lens"][dev_idx].contiguous(), window=window)
+    return out
+
+
+def check_serving_attention(torch, timer, gen):
+    """Ragged paged attention at granite's serving bucket
+    (:func:`serving_batch`: T 2,048 over a 512-block table) in bfloat16
+    and float32, and in bfloat16 under a 4,096-token window: within TOL
+    of each live row's max |plain| (:func:`plain_by_request`), zeros on
+    the padded rows, no output changed by NaN in the dump block; timed
+    (CUDA events, the L2 flushed; the device time of each of its CUDA
+    kernels) beside the bound, with what the planner counted for one
+    call (items, cut items, blocks launched, blocks of the grid the work
+    list replaced).  Returns {case: result}."""
+    from repro_torch.kernels.bench import b1_counts, device_split
+    from repro_torch.kernels.paged_attention import ragged_paged_attention
+    res = {}
+    for key, dtype_name, window in (("bfloat16", "bfloat16", 0),
+                                    ("float32", "float32", 0),
+                                    ("bfloat16_window4096", "bfloat16",
+                                     4096)):
+        a = serving_batch(torch, getattr(torch, dtype_name), gen)
+        args = (a["q"], a["k_pool"], a["v_pool"], a["block_tables"],
+                a["req_rows"], a["q_lens"])
+        b1_counts()
+        got = ragged_paged_attention(*args, window=window)
+        torch.cuda.synchronize()
+        counts = b1_counts()
+        want = plain_by_request(torch, a, window)
+        n = a["n_real"]
+        err, _, row_rel = rel_err(got, want, slice(0, n))
+        if row_rel > TOL[dtype_name]:
+            fail(f"ragged_paged_attention serving {key}: max|err| {err}, "
+                 f"{row_rel} of a row's max|plain| > {TOL[dtype_name]}")
+        if bool(got[n:].float().abs().max() != 0):
+            fail(f"ragged_paged_attention serving {key}: q_lens == 0 rows "
+                 "are not zero")
+        a["k_pool"][-1] = float("nan")
+        a["v_pool"][-1] = float("nan")
+        again = ragged_paged_attention(*args, window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            fail(f"ragged_paged_attention serving {key}: NaN in the dump "
+                 "block reached the output")
+        a["k_pool"][-1] = 0.0
+        a["v_pool"][-1] = 0.0
+        del want, again
+        # the bound: each live row's keys, and each block of K/V they
+        # touch read once
+        T, H, hd = a["q"].shape
+        _, bs, KV, _ = a["k_pool"].shape
+        es = a["q"].element_size()
+        blocks, ops = set(), 0
+        for t in range(n):
+            lo = max(0, a["lens"][t] - window) if window else 0
+            r = a["rows"][t]
+            blocks.update((r, b) for b in range(lo // bs,
+                                                -(-a["lens"][t] // bs)))
+            ops += 4 * H * hd * (a["lens"][t] - lo)
+        nbytes = 2 * T * H * hd * es + 2 * len(blocks) * bs * KV * hd * es             + 4 * (a["block_tables"].numel() + 2 * T)
+        bound_ms, bound_by = bound(nbytes, ops, dtype_name)
+        kw = {"window": window}
+        ms = timer(lambda: ragged_paged_attention(*args, **kw))
+        split = device_split(SimpleNamespace(args=args, kwargs=kw),
+                             ragged_paged_attention, timer)
+        res[key] = {"T": T, "live_rows": n, "window": window,
+                    "row_rel_err": row_rel, "tol": TOL[dtype_name],
+                    "ms": ms, "device_split_ms": split,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bytes": nbytes, "ops": ops, "counts": counts}
+        print(f"  ragged_paged_attention serving {key} (T {T}, {n} live "
+              f"rows, 512-block table): row rel {row_rel:.3e} (tol "
+              f"{TOL[dtype_name]}); kernel {ms:.4f} ms (device "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"), bound {bound_ms:.4f} ms ({bound_by}); planner: "
+              + ", ".join(f"{k} {v}" for k, v in counts.items()),
+              flush=True)
+        del a, args, got
+        torch.cuda.empty_cache()
     return res
 
 
@@ -5044,6 +5199,7 @@ def main() -> None:
     timer = Timer("cuda")
     attn = check_attention(torch, cfgs, timer, gen)
     attn_edges = check_attention_edges(torch, gen)
+    attn_serving = check_serving_attention(torch, timer, gen)
     lora = check_lora(torch, cfgs, timer, gen)
     lora_r8 = check_lora_rank8(torch, cfgs, timer, gen)
     lora_edges = check_lora_edges(torch, cfgs, gen)
@@ -5155,8 +5311,9 @@ def main() -> None:
                      ("ms", "plain_ms", "library_ms", "bound_ms",
                       "bound_by", "device_split_ms")},
             long_context={k: a16["long"][k] for k in
-                          ("context", "table_blocks", "splits",
-                           "grid_blocks", "scratch_bytes", "row_rel_err",
+                          ("context", "table_blocks", "items",
+                           "cut_items", "grid_blocks", "old_grid_blocks",
+                           "scratch_bytes", "row_rel_err",
                            "ms", "plain_ms", "library_ms", "bound_ms",
                            "bound_by", "device_split_ms")},
             zamba2={k: attn["zamba2_bfloat16"][k] for k in
@@ -5200,6 +5357,9 @@ def main() -> None:
             decode_attention_device_ms_per_step_whisper=mp[ENCDEC_ARCH][
                 "decode_profile"]["attention_device_ms_per_step"],
             edge_rel_err=attn_edges,
+            serving={k: {f: v for f, v in e.items()
+                         if f not in ("bytes", "ops")}
+                     for k, e in attn_serving.items()},
             launches_serving_tier=tier_launches["ragged_paged_attention"]),
         kernel_entry(
             "ragged_grouped_lora", "src/repro_torch/csrc/ragged_lora.cu",

@@ -95,6 +95,25 @@ def bound_ms(nbytes: float, ops: float, dtype: torch.dtype):
                                        else "operations")
 
 
+def b1_counts(tracer=None) -> Dict[str, int]:
+    """What B1's planner counted since the last read, summed over the
+    devices it ran on (``paged_attention.COUNTS``: items, cut items,
+    blocks launched, blocks the replaced (T, KV, splits) grid would have
+    launched), and the counters zeroed.  ``tracer``: each count is also
+    added to its counters (``Tracer.count``).  A read syncs with the
+    card: call it at a bench's end, never inside a step."""
+    from repro_torch.kernels import paged_attention as pa
+    total = dict.fromkeys(pa.COUNTS, 0)
+    for t in pa._COUNTS.values():
+        for name, v in zip(pa.COUNTS, t.tolist()):
+            total[name] += int(v)
+        t.zero_()
+    if tracer is not None:
+        for name, v in total.items():
+            tracer.count(name, v)
+    return total
+
+
 # ---------------------------------------------------------------------------
 # cases
 # ---------------------------------------------------------------------------

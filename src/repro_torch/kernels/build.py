@@ -32,10 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points (all return cudaError_t)
 SIGNATURES = {
-    # q, k_pool, v_pool, block_tables, req_rows, q_lens, out, part_acc,
-    # part_ml, T, H, KV, hd, bs, nb, window, scale, is_bf16, stream
-    "ragged_paged_attention": (P, P, P, P, P, P, P, P, P,
-                               I, I, I, I, I, I, I, F, I, P),
+    # q, k_pool, v_pool, block_tables, req_rows, q_lens, out, work,
+    # part_acc, part_ml, counts, T, H, KV, hd, bs, nb, window, scale, grid,
+    # items, is_bf16, stream
+    "ragged_paged_attention": (P, P, P, P, P, P, P, P, P, P, P,
+                               I, I, I, I, I, I, I, F, I, I, I, P),
     # x, (a, b, out) x 3, adapter_idx, active_slots, part, T, d, r,
     # out_dim x 3, n_pairs, n_slots, K, split, n_split, tiles, out_tiles,
     # tile0 x 3, is_bf16, stream
@@ -46,10 +47,11 @@ SIGNATURES = {
     # states, T, H, N, P, M, grid_h, grid_p, stream
     "ragged_ssd_chunk_scan": (P, P, P, P, P, P, P, P, P, P, P,
                               I, I, I, I, I, I, I, P),
-    # q, k_pool, v_pool, block_tables, lengths, out, part_acc, part_ml,
-    # B, H, KV, hd, bs, nb, window, scale, is_bf16, stream
-    "paged_attention": (P, P, P, P, P, P, P, P,
-                        I, I, I, I, I, I, I, F, I, P),
+    # q, k_pool, v_pool, block_tables, lengths, out, work, part_acc,
+    # part_ml, counts, B, H, KV, hd, bs, nb, window, scale, grid, items,
+    # is_bf16, stream
+    "paged_attention": (P, P, P, P, P, P, P, P, P, P,
+                        I, I, I, I, I, I, I, F, I, I, I, P),
     # x, B, C, dA, dt, y, state, Bt, S, H, N, P, chunk, cols, slices,
     # stages, stream
     "ssd_chunk_scan": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),

@@ -11,12 +11,16 @@ with their plain PyTorch versions beside it.
 
 Both take an optional sliding window and run an fp32 online softmax.
 On the TPU the two share one body; here they share one pair of CUDA
-kernels (``repro_torch/csrc/paged_attention.cu``): a tile kernel over
-(query tile, KV head, context split) and a small kernel that merges the
-splits of rows spanning more than one.  It reads only the positions
-that are valid for some row of a tile, so padding table entries may be
-any id.  :func:`plan` gives the launch (grid, tile size, scratch) from
-the shapes alone.
+kernels (``repro_torch/csrc/paged_attention.cu``): a planner that writes
+a list of work items on the device (one per query tile that holds a
+valid key, KV head and piece of the tile's keys; :func:`work_items` is
+its plain Python mirror), and a tile kernel of a fixed grid whose blocks
+take the items, the block that finishes a cut tile's last piece merging
+its pieces.  It reads only the positions that are valid for some row of
+a tile, so padding table entries may be any id.  :func:`plan` gives the
+launch (grid, tile size, the list's capacity, scratch) from the shapes
+alone; the planner adds what it planned to a device counter
+(:func:`counts`), read off the step path.
 
 Each wrapper sends a CUDA tensor to the kernel and a CPU tensor to its
 plain version; nothing else selects between them.  Each counts its
@@ -26,7 +30,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -34,35 +38,59 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-# the launch plan
-SPLIT = 256             # context tokens per split (grid.z): the CUDA
-                        # source's kSplit, which it also cuts the span by
-TILE_QUERY_ROWS = 64    # query rows (token x query head) per tile
+# the launch plan: the CUDA source's constants of the same meaning
+GRID = 132 * 2          # kGrid: the tile kernel's persistent blocks (2 on
+                        # each of the H100's 132 SMs)
+PLAN_THREADS = 1024     # kPlanThreads: the planner's one block
+TILE_QUERY_ROWS = 64    # kRows: query rows (token x query head) per tile
+ITEM_KEYS = 8192        # kItemKeys: the most keys one item reads ...
+ITEM_BLOCKS = 512       # kItemBlocks: ... and the most table blocks it
+                        # spans: min(ITEM_KEYS, ITEM_BLOCKS * bs) keys
+MIN_CUT = 128           # kMinCut: the fewest keys of a cut piece
+CUT_ALIGN = 64          # kCutAlign: a piece's length is a multiple of this
+ROW_KEYS = 16           # kRowKeys: a cut tile's pieces hold at least this
+                        # many keys per query row of the tile
 # the head sizes it is built for: every attention config of the
 # reference's registry, ported or not
 HEAD_DIMS = (32, 64, 80, 96, 128, 160)
+# the device counts the planner adds to, in order (``counts``)
+COUNTS = ("b1_items", "b1_cut_items", "b1_blocks", "b1_old_blocks")
 
 
 @dataclass(frozen=True)
 class Plan:
-    """How the kernel covers a call, from the shapes alone: one block
-    per (packed row, KV head, context split); a block whose row heads no
-    query tile, or whose split holds no valid position, exits at once.
+    """How the kernels cover a call, from the shapes alone.  The planner
+    (one block of ``PLAN_THREADS``) writes the work list on the device;
+    the tile kernel runs ``grid`` persistent blocks that take its items.
     The CUDA source sizes each block's shared memory (asserting at
     compile time that it fits the card) from the dtype and hd."""
-    grid: Tuple[int, int, int]      # (T, KV, splits)
-    tile_rows: int                  # M = 64 // G packed rows per tile
-    # fp32 scratch of rows spanning several splits: the accumulators
-    # (T, H, splits, hd), then each split's max and sum (T, H, splits, 2);
-    # None when there is one split
-    partials: Optional[Tuple[int, int, int, int]]
+    grid: int                 # the tile kernel's blocks
+    tile_rows: int            # M = 64 // G packed rows per tile
+    item_keys: int            # the most keys of one item
+    items: int                # the work list's capacity
+    # fp32 scratch rows of the cut items' partials: hd accumulators and
+    # (max, sum) each
+    partial_rows: int
+    # int32 scratch: a header of 8, the planner's tiles (4 a row), the
+    # items (8 each), a counter per (cut tile, KV head)
+    work_ints: int
 
 
 @functools.lru_cache(maxsize=256)
 def plan(T: int, H: int, KV: int, hd: int, bs: int, nb: int) -> Plan:
     """The launch of one call with q (T, H, hd), pools (NB, bs, KV, hd)
     and block tables (R, nb).  Raises ``ValueError`` for a shape the
-    kernel does not take."""
+    kernel does not take.
+
+    Capacities.  With ``keys`` the sum of the tiles' key ranges, a piece
+    holds ``chunk = min(cap, max(MIN_CUT, KV * keys / (2 * grid)))`` keys
+    (rounded up to ``CUT_ALIGN``).  Below ``cap`` the pieces number at
+    most ``T + 2 * grid / KV`` and a cut tile's pieces fewer than ``2 *
+    len / chunk``, so the cut rows (at most 64 a piece and KV head) fewer
+    than ``256 * grid``; at ``cap`` a tile has at most ``ceil(span /
+    cap)`` pieces, and only a span past ``cap`` cuts there.  A tile's
+    pieces only grow past ``chunk`` (:func:`piece_keys`), so the bounds
+    hold for them."""
     if KV <= 0 or H % KV:
         raise ValueError(f"H {H} is not a multiple of KV {KV}")
     G = H // KV
@@ -75,9 +103,108 @@ def plan(T: int, H: int, KV: int, hd: int, bs: int, nb: int) -> Plan:
     if bs <= 0 or bs & (bs - 1) or nb <= 0:
         raise ValueError(f"block size {bs} must be a power of two and the "
                          f"table width {nb} positive")
-    splits = -(-nb * bs // SPLIT)
-    return Plan(grid=(T, KV, splits), tile_rows=TILE_QUERY_ROWS // G,
-                partials=(T, H, splits, hd) if splits > 1 else None)
+    span = nb * bs
+    cap = min(ITEM_KEYS, ITEM_BLOCKS * bs)
+    per_tile = -(-span // cap)
+    pieces = max(T * per_tile, T + -(-2 * GRID // KV))
+    items = KV * pieces
+    grid = min(GRID, items)
+    rows = 4 * TILE_QUERY_ROWS * grid
+    if span > cap:
+        rows = max(rows, H * T * per_tile)
+    return Plan(grid=grid, tile_rows=TILE_QUERY_ROWS // G, item_keys=cap,
+                items=items, partial_rows=rows,
+                work_ints=8 + 4 * T + 8 * items + KV * T)
+
+
+class Item(NamedTuple):
+    """One item of the work list: the tile's rows ``t0 .. t0 + m - 1``
+    against KV head ``kv`` over keys ``[k0, k1)``, piece ``piece`` of the
+    tile's ``pieces``; a cut tile's pieces write partial rows from
+    ``row`` (``-1``: not cut) and count themselves at ``done``."""
+    t0: int
+    m: int
+    kv: int
+    k0: int
+    k1: int
+    piece: int
+    pieces: int
+    row: int
+    done: int
+
+
+def work_items(req_rows: Optional[Sequence[int]], q_lens: Sequence[int], *,
+               H: int, KV: int, bs: int, nb: int, window: int = 0):
+    """The planner's work list, in plain Python and in its order: the
+    items and the call's piece length ``chunk`` (a tile's pieces take
+    :func:`piece_keys`).  ``req_rows`` None is the
+    decode entry (row t reads table row t)."""
+    T = len(q_lens)
+    G = H // KV
+    M = TILE_QUERY_ROWS // G
+    span = nb * bs
+    grid = plan(T, H, KV, HEAD_DIMS[0], bs, nb).grid   # hd sets no grid
+    rows = list(range(T)) if req_rows is None else [int(r) for r in req_rows]
+
+    def valid(t):
+        ql = int(q_lens[t])
+        hi = min(ql, span)
+        lo = max(0, ql - window) if window > 0 else 0
+        return (0, 0) if hi <= lo else (lo, hi)
+
+    tiles, t = [], 0
+    while t < T:
+        m = 1
+        while t + m < T and (t + m) % M and rows[t + m] == rows[t]:
+            m += 1
+        ranges = [valid(r) for r in range(t, t + m) if valid(r)[1] > 0]
+        if ranges:
+            tiles.append((t, m, min(r[0] for r in ranges),
+                          max(r[1] for r in ranges)))
+        t += m
+    keys = sum(hi - lo for _, _, lo, hi in tiles)
+    share = max(-(-keys * KV // (2 * grid)), MIN_CUT)
+    chunk = min(-(-share // CUT_ALIGN) * CUT_ALIGN,
+                min(ITEM_KEYS, ITEM_BLOCKS * bs))
+    items: List[Item] = []
+    n_cut = n_rows = 0
+    for t0, m, lo, hi in tiles:
+        rq = m * G
+        size = piece_keys(chunk, rq, bs)
+        n = -(-(hi - lo) // size)
+        for i in range(n):
+            k0 = lo + i * size
+            for kv in range(KV):
+                items.append(Item(
+                    t0, m, kv, k0, min(hi, k0 + size), i, n,
+                    n_rows + (i * KV + kv) * rq if n > 1 else -1,
+                    n_cut * KV + kv if n > 1 else -1))
+        if n > 1:
+            n_cut += 1
+            n_rows += n * KV * rq
+    return items, chunk
+
+
+def piece_keys(chunk: int, rows: int, bs: int) -> int:
+    """The keys of one piece of a tile of ``rows`` query rows, given the
+    call's ``chunk``: ``ROW_KEYS`` keys a row at least (whole
+    ``CUT_ALIGN`` runs), at most the item's keys."""
+    least = -(-rows * ROW_KEYS // CUT_ALIGN) * CUT_ALIGN
+    return min(min(ITEM_KEYS, ITEM_BLOCKS * bs), max(chunk, least))
+
+
+_COUNTS: Dict[torch.device, torch.Tensor] = {}
+
+
+def counts(device: torch.device) -> torch.Tensor:
+    """The device counter the planner adds to on ``device``: int64 (4,)
+    in the order of ``COUNTS``.  Read it off the step path only
+    (``repro_torch.kernels.bench.b1_counts``): a read is a sync."""
+    t = _COUNTS.get(device)
+    if t is None:
+        t = _COUNTS[device] = torch.zeros(len(COUNTS), dtype=torch.int64,
+                                          device=device)
+    return t
 
 
 def ragged_paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -170,26 +297,24 @@ def _check(q, k_pool, v_pool, block_tables, **index) -> Plan:
 
 
 def _launch(fn, p: Plan, q, k_pool, v_pool, block_tables, *index, window):
-    """Run the C entry ``fn`` under plan ``p``: allocates the output and
-    the split partials, launches, raises on a launch error."""
+    """Run the C entry ``fn`` under plan ``p``: allocates the output, the
+    work list and the partials, launches, raises on a launch error."""
     T, H, hd = q.shape
     _, bs, KV, _ = k_pool.shape
     out = torch.empty_like(q)
     if T == 0:
         return out
-    acc = ml = 0
-    if p.partials is not None:
-        n_acc = T * H * p.grid[2] * hd
-        scratch = torch.empty(n_acc + T * H * p.grid[2] * 2,
-                              dtype=torch.float32, device=q.device)
-        acc = scratch.data_ptr()
-        ml = acc + 4 * n_acc
+    work = torch.empty(p.work_ints, dtype=torch.int32, device=q.device)
+    part = torch.empty(p.partial_rows * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    acc = part.data_ptr()
     err = getattr(build.load(), fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), *(t.data_ptr() for t in index),
-        out.data_ptr(), acc, ml, T, H, KV, hd, bs,
-        block_tables.shape[1], window, 1.0 / (hd ** 0.5),
-        int(q.dtype == torch.bfloat16),
+        out.data_ptr(), work.data_ptr(), acc,
+        acc + 4 * p.partial_rows * hd, counts(q.device).data_ptr(), T, H,
+        KV, hd, bs, block_tables.shape[1], window, 1.0 / (hd ** 0.5),
+        p.grid, p.items, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, fn)
     return out
