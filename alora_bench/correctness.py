@@ -1,18 +1,19 @@
 """The check that decides ``correct``: the tokens the timed path served,
 judged by the plain reference.
 
-Once the window has closed, a sample drawn from the seed of the
-requests due in the window that finished, with the longest among them
-and the adapted request that the cache served most (on an SSM model,
-one whose state snapshot was restored), is scored by the reference:
-one teacher-forced pass over each prompt and the tokens served after
-it.  At each served token the reading is how far its logit lies below
-the reference's best logit there; the number compared is the widest
-such gap over the sample (``max_logit_gap``).  The control takes the
-program's place: at the same positions, the tokens that the reference
-computed one precision below the configuration's puts first are judged
-instead of the served ones, by the same number and the same limit (the
-served tokens' gap is then kept as ``served_logit_gap``)."""
+Once the window has closed, a sample drawn from the seed of the requests
+due in the window that finished, with the longest among them and the
+adapted request that the cache served most (on an SSM model, one whose
+state snapshot was restored), is scored by the reference of the
+configuration's model family: one teacher-forced pass over each prompt
+and the tokens served after it.  At each served token the reading is how
+far its logit lies below the reference's best logit there; the number
+compared is the widest such gap over the sample (``max_logit_gap``).
+The control takes the program's place: at the same positions, the tokens
+that the reference computed one precision below the configuration's puts
+first are judged instead of the served ones, by the same number and the
+same limit (the served tokens' gap is then kept as
+``served_logit_gap``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from alora_bench import draws
-from alora_bench.reference import Reference, Seq, find_last
+from alora_bench.reference import Seq, find_last
 
 
 def sample(requests: Sequence, seed: int, target_tokens: int,
@@ -79,16 +80,17 @@ def gaps_of(ref: torch.Tensor, tokens: Sequence[int]) -> np.ndarray:
 CONTROL = {"bfloat16": "fp8", "float32": "bf16"}   # one precision below
 
 
-def judge(dims: Dict[str, Any], weights: Dict[str, Any], adapters,
+def judge(family, dims: Dict[str, Any], weights: Dict[str, Any], adapters,
           invocations, picked: Sequence, device, control: bool = False
           ) -> Dict[str, Any]:
-    """Readings of the sample: the widest gap of the served tokens; with
-    ``control``, that of the tokens the reference puts first when
-    computed one precision below the configuration's (float8 for
-    bfloat16, bfloat16 for the tests' float32), judged in their place."""
+    """Readings of the sample, by the reference of the cell's model
+    ``family``: the widest gap of the served tokens; with ``control``,
+    that of the tokens the reference puts first when computed one
+    precision below the configuration's (float8 for bfloat16, bfloat16
+    for the tests' float32), judged in their place."""
     seqs = sequences(picked, invocations)
     V = dims["vocab_size"]
-    ref = Reference(dims, weights, adapters, device).logits(seqs)
+    ref = family.reference(dims, weights, adapters, device).logits(seqs)
     served = [t.outputs() for t in picked]
     g = np.concatenate([gaps_of(r, s) for r, s in zip(ref, served)])
     out = {"max_logit_gap": float(g.max()), "tokens": int(g.size),
@@ -98,8 +100,8 @@ def judge(dims: Dict[str, Any], weights: Dict[str, Any], adapters,
            "reused_tokens": int(sum(t.reused for t in picked)),
            "restored": sum(1 for t in picked if t.restored)}
     if control:
-        low = Reference(dims, weights, adapters, device,
-                        quant=CONTROL[dims["dtype"]]).logits(seqs)
+        low = family.reference(dims, weights, adapters, device,
+                               quant=CONTROL[dims["dtype"]]).logits(seqs)
         cg = np.concatenate([
             gaps_of(r, torch.argmax(c[:, :V], dim=-1).tolist())
             for r, c in zip(ref, low)])

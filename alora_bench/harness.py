@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from alora_bench import correctness, profile_read, spec as S, weights as W
+from alora_bench import correctness, profile_read, spec as S
 from alora_bench.driver import Driver
 from alora_bench.stats import finite_or_none
 from alora_bench.tracing import Recorder
@@ -62,36 +62,6 @@ def forbidden_modules(names=None) -> List[str]:
     tops = {n.split(".")[0] for n in (list(sys.modules) if names is None
                                       else names)}
     return sorted(tops & set(FORBIDDEN))
-
-
-def model_config(spec: S.CellSpec, reduced: bool):
-    """The port's configuration of the cell's model, checked against
-    every number of the configuration file (the reduced CPU-test
-    configuration is the port's own, with the file's ``reduced_model``
-    changes, unchecked)."""
-    from repro_torch.configs import get_config, get_reduced
-    arch = spec.config["arch"]
-    if reduced:
-        return get_reduced(arch).replace(
-            **spec.config.get("reduced_model", {}))
-    cfg = get_config(arch)
-    m = spec.config["model"]
-    for k, v in m.items():
-        if k == "ssm":
-            for sk, sv in v.items():
-                if getattr(cfg.ssm, sk) != sv:
-                    raise ValueError(f"{arch}: ssm.{sk} {getattr(cfg.ssm, sk)}"
-                                     f" is not the file's {sv}")
-        elif k == "attention_every":
-            want = tuple("attn" if (i + 1) % v == 0 else "ssm"
-                         for i in range(cfg.num_layers))
-            if cfg.pattern() != want:
-                raise ValueError(f"{arch}: layer pattern is not attention "
-                                 f"every {v}th layer")
-        elif getattr(cfg, k) != v:
-            raise ValueError(f"{arch}: {k} {getattr(cfg, k)} is not the "
-                             f"file's {v}")
-    return cfg
 
 
 def power_limit() -> Optional[str]:
@@ -128,19 +98,20 @@ def traffic(spec: S.CellSpec, dims, w, seed: int, rate: float):
 def prepare(workload: str, seed: int, device: str, root: Path = S.ROOT,
             overrides: Optional[Dict] = None, reduced: bool = False):
     """The cell's spec, the port's configuration, its plain numbers and
-    the weights drawn from ``seed``; on a card, the kernels loaded (and
-    built on first use) first."""
+    the weights drawn from ``seed``, each from the cell's model family;
+    on a card, the kernels loaded (and built on first use) first."""
     from repro_torch.models.model import period_segments
     spec = S.load(workload, root, overrides)
     dev = torch.device(device)
-    cfg = model_config(spec, reduced)
-    dims = W.dims_of(cfg)
+    fam = spec.family
+    cfg = fam.config(spec, reduced)
+    dims = fam.dims_of(cfg)
     if dev.type == "cuda":
         from repro_torch.kernels import build
         build.load()
         torch.cuda.reset_peak_memory_stats()
-    w = W.draw(dims, spec.config["adapters"], seed, dev,
-               period_segments(cfg))
+    w = fam.draw(dims, spec.config["adapters"], seed, dev,
+                 period_segments(cfg))
     return spec, cfg, dims, w
 
 
@@ -207,7 +178,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     rec = Record(window=(t_open, t_close), setup_s=setup_s,
                  requests=drv.all_requests(), window_requests=win,
                  tracer_events=tracer_events, assembly_s=asm1 - asm0,
-                 mixed_steps=steps1 - steps0, dims=dims,
+                 mixed_steps=steps1 - steps0, dims=dims, family=spec.family,
                  adapter_rank=spec.config["adapters"]["rank"],
                  calls=rec_tr.calls if rec_tr else [],
                  profile=rec_tr.profile if rec_tr else None)
@@ -250,8 +221,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.empty_cache()
     invocations = [ids for _, ids, _ in w["adapters"]]
     t_ref = time.perf_counter()
-    readings = correctness.judge(dims, w["params"], w["layers"], invocations,
-                                 keep, dev, control=control) \
+    readings = correctness.judge(spec.family, dims, w["params"], w["layers"],
+                                 invocations, keep, dev, control=control) \
         if keep else {"tokens": 0}
     log(f"[{workload}] reference over {readings.get('requests', 0)} requests,"
         f" {readings.get('tokens', 0)} served tokens in "

@@ -1,6 +1,7 @@
 """No module of the benchmark imports JAX, Flax or the JAX package
 (``repro``), compared by whole top-level name (``repro_torch`` is not
-``repro``); the reference imports nothing of the program either."""
+``repro``); the references, each model family's among them, import
+nothing of the program either."""
 from __future__ import annotations
 
 import ast
@@ -37,6 +38,37 @@ def test_the_reference_imports_nothing_of_the_program():
     for f in sorted((BENCH / "reference").rglob("*.py")):
         names = top_level_imports(f)
         assert not names & (FORBIDDEN | {"repro_torch"}), (f, names)
+
+
+def module_imports(path: Path):
+    """Every module a file imports, by its full dotted name."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_every_family_is_scanned_and_its_reference_is_plain():
+    """Each model family (``families/<name>.py``, scanned above) has its
+    reference beside the others (``reference/<name>.py``), and every file
+    there imports plain PyTorch, NumPy and the references' shared code
+    alone: nothing of the program, directly or through another module of
+    the benchmark."""
+    scanned = set(BENCH.rglob("*.py"))
+    families = sorted((BENCH / "families").glob("*.py"))
+    assert BENCH / "families" / "stack.py" in families
+    assert set(families) <= scanned
+    plain = {"__future__", "math", "typing", "dataclasses", "torch",
+             "numpy"}
+    for fam in families:
+        assert (BENCH / "reference" / fam.name).is_file(), fam
+    for ref in sorted((BENCH / "reference").glob("*.py")):
+        for name in module_imports(ref):
+            assert name.split(".")[0] in plain \
+                or name.startswith("alora_bench.reference"), (ref, name)
 
 
 def test_the_check_compares_whole_names(tmp_path):

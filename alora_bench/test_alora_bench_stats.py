@@ -148,9 +148,10 @@ def test_step_mfu_counts_the_model_flops_over_the_window():
     lora = 2 * 8 * (64 + 64) + 4 * 8 * (64 + 32)
     want = 10 * 2 * per_tok + 4 * 2 * lora + 2 * 4 * 4 * 16 * 55 \
         + 2 * 2 * 64 * 100
-    assert Y.step_flops(call, dims, 8) == want
+    stack = spec.load_family(BENCH, "stack")
+    assert stack.step_flops(call, dims, 8) == want
     rec = Record(window=(0.0, 2.0), calls=[call, dict(call, t=3.0)],
-                 dims=dims, adapter_rank=8)
+                 dims=dims, family=stack, adapter_rank=8)
     assert read("step_mfu", rec) == pytest.approx(
         100 * want / (2.0 * Y.BF16_PEAK))
 

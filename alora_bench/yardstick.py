@@ -1,6 +1,7 @@
 """The benchmark's yardstick: the card's peaks, the least bytes and
 operations of the two serving kernels a roofline share is taken
-against, and the model FLOPs of a mixed step.
+against.  The model FLOPs of a mixed step depend on the model, and are
+its family's (``families/<family>.py::step_flops``).
 
 Frozen here so that a later change to the program cannot move it.  The
 byte and operation counts of B1 (ragged paged attention) and B3 (the
@@ -12,7 +13,7 @@ imports the program.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -125,43 +126,3 @@ def ragged_ssd_work(*, H: int, N: int, P: int, seg_lens: Iterable[int],
     nbytes = 4 * (2 * T * H * P + 2 * T * H * N + 2 * T * H) \
         + 4 * (R + n_kept) * H * N * P + 4 * (2 * T + n_kept)
     return nbytes, ops
-
-
-# ---------------------------------------------------------------------------
-# model FLOPs of a mixed step
-# ---------------------------------------------------------------------------
-def token_matmul_flops(m: Dict) -> Dict[str, int]:
-    """FLOPs of one token through one layer's dense products, by layer
-    kind, and of one adapted token's low-rank deltas; ``m`` holds the
-    configuration file's model block (with ``d_inner``, ``ssm_heads``,
-    ``conv_ch`` filled in for an SSM model)."""
-    d, H, KV, hd = m["d_model"], m["num_heads"], m["num_kv_heads"], \
-        m["head_dim"]
-    gate = 3 if m["activation"] == "swiglu" else 2
-    out = {"attn": 2 * d * (H * hd + 2 * KV * hd) + 2 * H * hd * d
-           + 2 * gate * d * m["d_ff"]}
-    r = m.get("adapter_rank", 0)
-    out["attn_lora"] = 2 * r * (d + H * hd) + 4 * r * (d + KV * hd)
-    if "ssm" in m:
-        s = m["ssm"]
-        in_dim = m["d_inner"] + m["conv_ch"] + m["ssm_heads"]
-        out["ssm"] = 2 * d * in_dim + 2 * m["d_inner"] * d \
-            + 2 * s["conv_width"] * m["conv_ch"]
-        out["ssm_lora"] = 2 * r * (d + in_dim)
-    return out
-
-
-def step_flops(call: Dict, dims: Dict, adapter_rank: int) -> float:
-    """Model FLOPs of one mixed step's computed tokens (``call``: the
-    traced run's summary of its batch): every token through every
-    layer's dense products, the adapted tokens' low-rank deltas,
-    attention over each token's context, the SSM scan's operations and
-    the logits of each request row over the published vocabulary."""
-    f = token_matmul_flops(dict(dims, adapter_rank=adapter_rank))
-    La, Ls = dims["kinds"].count("attn"), dims["kinds"].count("ssm")
-    flops = call["T"] * (La * f["attn"] + Ls * f.get("ssm", 0)) \
-        + call["adapted"] * (La * f["attn_lora"] + Ls * f.get("ssm_lora", 0))
-    flops += La * 4 * dims["num_heads"] * dims["head_dim"] * call["ctx"]
-    flops += Ls * call.get("ssd_ops", 0)
-    flops += call["R"] * 2 * dims["d_model"] * dims["vocab_size"]
-    return float(flops)
